@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's Fig. 2 main path on one card.
+
+    python3 scripts/profile_port.py [--rounds 40]
+
+Builds the same two cells as ``chip_smoke.py`` (ProposedOTA at N = 50,
+ProposedDigital at N = 10, 4 trials, d = 7850), warms each up, then runs
+``--rounds`` rounds under ``torch.profiler`` and prints one JSON line per
+cell: host wall time per round (one run's host-side fading/noise set-up
+and final eval included), device time per round (kernels run
+on one stream, so their sum is the busy time), the device's idle share,
+kernel launches per round, and device time per round by kernel family
+(gradient GEMMs, the threefry dither's int64 bitwise and shift ops, the
+port's two CUDA kernels, the rest). Needs a card; exits non-zero without one.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+FAMILIES = (                      # first match wins, on the kernel's name
+    ("ota_combine", ("ota_combine",)),
+    ("dithered_quantize_rows", ("dithered_quantize",)),
+    ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_kernel")),
+    ("bitwise/shift (threefry)", ("bitwise", "shift")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce", "norm")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def profile_cell(trainer, agg, rounds, **run):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    trainer.run(agg, rounds=2, eval_every=1, **run)          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(agg, rounds=rounds, eval_every=rounds, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_family, launches, busy_us = {}, 0, 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if evt.device_type != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+            continue
+        fam = family(evt.key)
+        by_family[fam] = by_family.get(fam, 0.0) + dev_us
+        launches += evt.count
+        busy_us += dev_us
+    if busy_us == 0:
+        raise SystemExit("profiler recorded no device time")
+    return dict(
+        wall_ms_per_round=wall * 1e3 / rounds,
+        device_ms_per_round=busy_us / 1e3 / rounds,
+        idle_share=1.0 - busy_us / 1e6 / wall,
+        launches_per_round=launches / rounds,
+        device_ms_per_round_by_family={
+            k: v / 1e3 / rounds for k, v in sorted(
+                by_family.items(), key=lambda kv: -kv[1])})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=40)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.core import baselines as B
+    from repro_torch.fl import FLTrainer
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    task, ds, dep, eta, ota_p, _ = chip_smoke.fig2_setup(50, 6000)
+    cell = profile_cell(FLTrainer(task, ds, dep, eta), B.ProposedOTA(ota_p),
+                        args.rounds, trials=4, seed=0)
+    print(json.dumps(dict(cell="fig2_ota N=50", **cell)), flush=True)
+    task, ds, dep, eta, _, dig_p = chip_smoke.fig2_setup(10, 1200)
+    cell = profile_cell(FLTrainer(task, ds, dep, eta),
+                        B.ProposedDigital(dig_p), args.rounds, trials=4,
+                        seed=0, time_budget_s=150.0)
+    print(json.dumps(dict(cell="fig2_digital N=10", **cell)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

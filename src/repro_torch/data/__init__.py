@@ -1,0 +1,6 @@
+from .synthetic import SyntheticSpec, make_classification_dataset
+from .partition import partition_by_class
+from .loader import DeviceDataset, FLDataset
+
+__all__ = ["SyntheticSpec", "make_classification_dataset",
+           "partition_by_class", "DeviceDataset", "FLDataset"]

@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the port's main path, their plain PyTorch
+versions and their callers:
+
+  ota_combine     — fused OTA post-scale + noise epilogue (eq. (6))
+  dithered_quant  — per-row dithered quantize-dequantize (Sec. II-B)
+
+Each wrapper counts its launches in ``<wrapper>.launches``; the sources
+build with nvcc at first use (``build.py``).
+"""
+from . import ops, ref
+from .dithered_quant import dithered_quantize_rows
+from .ota_combine import ota_combine
+
+KERNELS = (ota_combine, dithered_quantize_rows)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,105 @@
+// Per-row dithered stochastic quantize-dequantize on Hopper.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/dithered_quant.py
+// dithered_quantize_rows_2d (body _kernel): the digital-FL uplink
+// compressor of paper Sec. II-B. Row r (one device of one trial) has scale
+// m = ||g_r||_inf and L = 2^r - 1 levels, given as scal[r] = (m, L):
+//
+//   valid = L > 0 && m > 0
+//   safe  = valid ? 2m / L : 1
+//   x     = (g + m) / safe;  lo = floor(x)
+//   q     = clamp(lo + (u < x - lo), 0, L)
+//   out   = valid ? -m + safe * q : 0
+//
+// op for op as the reference. Every division, add and multiply is an _rn
+// intrinsic: an FMA or an approximate division moves x across a floor
+// boundary and flips a code. The dither u stays f32 in memory and widens
+// in registers (exact), which reads half the bytes of an f64 dither.
+//
+// Bound: bytes. Each element reads g (8 or 4 bytes) and u (4) and writes
+// out for about ten operations, one of them a division, so the kernel is
+// one streaming pass. Design: blockIdx.y walks rows (grid-stride past
+// 65535), each block loads its row's (m, L) once, and threads stride over
+// the row's columns with coalesced scalar loads; d needs no padding, the
+// loop bound masks the ragged edge.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double floor_(double x) { return floor(x); }
+__device__ __forceinline__ float floor_(float x) { return floorf(x); }
+__device__ __forceinline__ double fmax_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmin_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
+
+template <typename T>
+__global__ void dithered_quantize_rows_kernel(const T* __restrict__ g,
+                                              const float* __restrict__ u,
+                                              const T* __restrict__ scal,
+                                              T* __restrict__ out,
+                                              int64_t rows, int64_t d) {
+  const int64_t c0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t cstride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const T m = scal[2 * r];
+    const T levels = scal[2 * r + 1];
+    const bool valid = levels > T(0) && m > T(0);
+    const T safe = valid ? div_rn(mul_rn(T(2), m), levels) : T(1);
+    const T* gr = g + r * d;
+    const float* ur = u + r * d;
+    T* outr = out + r * d;
+    for (int64_t c = c0; c < d; c += cstride) {
+      T o = T(0);
+      if (valid) {
+        const T x = div_rn(add_rn(gr[c], m), safe);
+        const T lo = floor_(x);
+        const T up = (T(ur[c]) < sub_rn(x, lo)) ? T(1) : T(0);
+        const T q = fmin_(fmax_(add_rn(lo, up), T(0)), levels);
+        o = add_rn(-m, mul_rn(safe, q));
+      }
+      outr[c] = o;
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* g, const void* u, const void* scal, void* out,
+           int64_t rows, int64_t d, void* stream) {
+  constexpr int THREADS = 256;
+  int64_t bx = (d + THREADS - 1) / THREADS;
+  if (bx > 1024) bx = 1024;
+  const int64_t by = rows < 65535 ? rows : 65535;
+  const dim3 grid((unsigned)bx, (unsigned)by);
+  dithered_quantize_rows_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)g, (const float*)u, (const T*)scal, (T*)out, rows, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int dithered_quantize_rows_f64(const void* g, const void* u, const void* scal,
+                               void* out, int64_t rows, int64_t d,
+                               void* stream) {
+  return launch<double>(g, u, scal, out, rows, d, stream);
+}
+
+int dithered_quantize_rows_f32(const void* g, const void* u, const void* scal,
+                               void* out, int64_t rows, int64_t d,
+                               void* stream) {
+  return launch<float>(g, u, scal, out, rows, d, stream);
+}
+
+}  // extern "C"
