@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's Fig. 2 main path on one card.
+"""Where the time goes in the port's main paths on one card.
 
     python3 scripts/profile_port.py [--rounds 40]
 
-Builds the same two cells as ``chip_smoke.py`` (ProposedOTA at N = 50,
-ProposedDigital at N = 10, 4 trials, d = 7850), warms each up, then runs
-``--rounds`` rounds under ``torch.profiler`` and prints one JSON line per
-cell: host wall time per round (one run's host-side fading/noise set-up
-and final eval included), device time per round (kernels run
-on one stream, so their sum is the busy time), the device's idle share,
-kernel launches per round, and device time per round by kernel family
-(gradient GEMMs, the threefry dither's int64 bitwise and shift ops, the
-port's two CUDA kernels, the rest). Needs a card; exits non-zero without one.
+Builds the same four cells as ``chip_smoke.py``'s main path, 4 trials
+each: Fig. 2 ProposedOTA (N = 50) and ProposedDigital (N = 10) at
+d = 7850, and Fig. 3 ProposedOTA and ProposedDigital (N = 10, the MLP at
+d = 147,994, the digital one on the fused payload route). It warms each
+up, then runs ``--rounds`` rounds under ``torch.profiler`` and prints one
+JSON line per cell: host wall time per round (one run's host-side
+fading/noise set-up and final eval included), device time per round
+(kernels run on one stream, so their sum is the busy time), the device's
+idle share, kernel launches per round, and device time per round by
+kernel family (gradient GEMMs, the threefry dither's int64 bitwise and
+shift ops, each of the port's CUDA kernels, the copy of the host-made PS
+noise to the card, the rest). Needs a card;
+exits non-zero without one.
 """
 import argparse
 import json
@@ -24,8 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = (                      # first match wins, on the kernel's name
     ("ota_combine", ("ota_combine",)),
     ("dithered_quantize_rows", ("dithered_quantize",)),
+    ("quantize_pack_rows", ("quantize_pack",)),
+    ("packed_weighted_sum", ("packed_weighted_sum",)),
+    ("unpack_dequant_rows", ("unpack_dequant",)),
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_kernel")),
     ("bitwise/shift (threefry)", ("bitwise", "shift")),
+    ("memcpy host to card", ("memcpy htod",)),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce", "norm")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -97,6 +105,16 @@ def main() -> int:
                         B.ProposedDigital(dig_p), args.rounds, trials=4,
                         seed=0, time_budget_s=150.0)
     print(json.dumps(dict(cell="fig2_digital N=10", **cell)), flush=True)
+    task, ds, dep, eta, ota_p, dig_p = chip_smoke.fig3_setup()
+    trainer = FLTrainer(task, ds, dep, eta)
+    cell = profile_cell(trainer, B.ProposedOTA(ota_p), args.rounds,
+                        trials=4, seed=9)
+    print(json.dumps(dict(cell="fig3_ota N=10 d=147994", **cell)),
+          flush=True)
+    cell = profile_cell(trainer, B.ProposedDigital(dig_p), args.rounds,
+                        trials=4, seed=9)
+    print(json.dumps(dict(cell="fig3_digital N=10 d=147994 (fused)",
+                          **cell)), flush=True)
     return 0
 
 

@@ -53,7 +53,12 @@ def digital_round(params: DigitalParams, grads: torch.Tensor,
 
     Mirrors ``repro.core.digital.digital_round_jax``: every device's
     gradient is quantized in one launch (rows with chi = 0 carry weight 0),
-    then the 1/nu-weighted sum.
+    then the 1/nu-weighted sum. At d >= 2^17 with r_max <= 16 bits that is
+    the fused route: pack into codes, then the packed weighted sum, the
+    devices added in index order. The route follows the payload and not
+    ``use_kernel``, so ``use_kernel=False`` runs the same arithmetic in
+    plain PyTorch (the sequential oracle on the fused route) and gives the
+    kernel run's trajectory to the bit.
 
     Args:
       grads: (..., N, d) local gradients.
@@ -70,9 +75,11 @@ def digital_round(params: DigitalParams, grads: torch.Tensor,
                             device=dev)
     levels = torch.as_tensor(2.0 ** params.r_bits.astype(np.float64) - 1.0,
                              device=dev).expand(chi.shape)
+    r_max = int(np.max(params.r_bits))
     acc = ops.quantized_weighted_sum(
         grads, levels, u, chi / torch.as_tensor(params.nus, device=dev),
-        r_max=int(np.max(params.r_bits)), use_kernel=use_kernel)
+        r_max=r_max, use_kernel=use_kernel,
+        fused=ops.fused_route(r_max, grads.shape[-1]))
     # devices add in index order, as the reference's TDMA loop does: the
     # wall-clock a time budget compares against is then the reference's
     # to the last bit (chi is 0/1, so every product is exact)

@@ -1,5 +1,6 @@
-from .tasks import SoftmaxRegressionTask
+from .tasks import MLPTask, SoftmaxRegressionTask
 from .trainer import FLTrainer
 from .engine import FLEngine, TrainLog
 
-__all__ = ["SoftmaxRegressionTask", "FLTrainer", "FLEngine", "TrainLog"]
+__all__ = ["MLPTask", "SoftmaxRegressionTask", "FLTrainer", "FLEngine",
+           "TrainLog"]

@@ -202,7 +202,7 @@ class FLEngine:
         budget = np.inf if time_budget_s is None else float(time_budget_s)
         lat_div = self.dep.cfg.bandwidth_hz if port.is_ota else 1.0
 
-        w = self.task.init_params(dev).expand(trials, d).clone()
+        w = self.task.init_params(device=dev).expand(trials, d).clone()
         t_wall = torch.zeros(trials, dtype=torch.float64, device=dev)
         live = torch.ones(trials, dtype=torch.bool, device=dev)
         w_eval = w.clone()

@@ -17,6 +17,8 @@ from .core.channel import Deployment, WirelessConfig
 from .core.digital import DigitalParams
 from .core.ota import OTAParams
 from .data.loader import FLDataset
+from .kernels.ops import PackedGrads
+from .kernels.ref import LANES, payload_word_rows
 
 
 def _fields(obj, cls) -> dict:
@@ -69,11 +71,36 @@ def scheme(ref):
 
 
 def load_weights(task, w) -> None:
-    """Set ``task.weight`` from the reference's flat model vector w (d,)."""
+    """Set a task's buffers (``SoftmaxRegressionTask.weight``; ``MLPTask``'s
+    W1, b1, W2, b2) from the reference's flat model vector w (d,): the
+    buffers, flattened row-major in registration order, are w's layout."""
     w = torch.as_tensor(np.asarray(w, dtype=np.float64))
-    task.weight.copy_(w.reshape(task.weight.shape))
+    if w.shape != (task.dim,):
+        raise ValueError(f"w has shape {tuple(w.shape)}, the task takes "
+                         f"({task.dim},)")
+    parts = torch.split(w, [b.numel() for b in task.buffers()])
+    for buf, part in zip(task.buffers(), parts):
+        buf.copy_(part.reshape(buf.shape))
 
 
 def flat_weights(task) -> np.ndarray:
-    """``task.weight`` as the reference's flat f64 model vector w (d,)."""
-    return task.weight.detach().reshape(-1).to(torch.float64).cpu().numpy()
+    """A task's buffers as the reference's flat f64 model vector w (d,)."""
+    return torch.cat([b.detach().reshape(-1).to(torch.float64).cpu()
+                      for b in task.buffers()]).numpy()
+
+
+def packed_grads(ref) -> PackedGrads:
+    """``repro.kernels.ops.PackedGrads`` -> port ``PackedGrads``.
+
+    The reference's uint32 words (N*R_dev/K, LANES) carry each device's
+    codes in the same layout, padded further (to its row tile); the port
+    keeps each device's first W = ``payload_word_rows(d, code_bits)`` word
+    rows, which hold every code of the d entries.
+    """
+    words = np.asarray(ref.words).view(np.int32).reshape(ref.n_dev, -1,
+                                                         LANES)
+    w_rows = payload_word_rows(ref.d, ref.code_bits)
+    return PackedGrads(
+        words=torch.from_numpy(np.ascontiguousarray(words[:, :w_rows])),
+        scal=torch.from_numpy(np.array(ref.scal)),
+        code_bits=int(ref.code_bits), d=int(ref.d))

@@ -3,6 +3,9 @@ versions and their callers:
 
   ota_combine     — fused OTA post-scale + noise epilogue (eq. (6))
   dithered_quant  — per-row dithered quantize-dequantize (Sec. II-B)
+  payload         — the digital wire format at gradient scale: quantize and
+                    bit-pack, unpack and dequantize, and the packed
+                    weighted sum in device order
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the sources
 build with nvcc at first use (``build.py``).
@@ -10,8 +13,11 @@ build with nvcc at first use (``build.py``).
 from . import ops, ref
 from .dithered_quant import dithered_quantize_rows
 from .ota_combine import ota_combine
+from .payload import (packed_weighted_sum, quantize_pack_rows,
+                      unpack_dequant_rows)
 
-KERNELS = (ota_combine, dithered_quantize_rows)
+KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
+           unpack_dequant_rows, packed_weighted_sum)
 
 
 def launch_counts() -> dict:

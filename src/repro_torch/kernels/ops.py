@@ -3,23 +3,26 @@
 The arithmetic the reference keeps outside its Pallas kernels stays
 outside here too: ``inv_alpha = 1/alpha`` and ``z = noise * inv_alpha``
 before the OTA epilogue, the row scale ``m = max|g|`` before the
-quantizer, and the ``weights @ gq`` matvec after it. ``use_kernel=False``
-runs the plain versions (``kernels/ref.py``) directly, as the reference's
-flag runs its jnp oracles.
+quantizer and the packer, and the ``weights @ gq`` matvec after the
+two-step quantizer. ``use_kernel=False`` runs the plain versions
+(``kernels/ref.py``) directly, as the reference's flag runs its jnp
+oracles.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from . import ref
+from . import payload, ref
 from .dithered_quant import dithered_quantize_rows
 from .ota_combine import ota_combine
+from .payload import CODE_BITS_CHOICES
 
-# The reference switches the digital aggregate to its fused
-# quantize -> bit-pack -> dequantize-accumulate kernels at this payload
-# dimension; the port has not ported those kernels yet.
+# At this payload dimension the digital aggregate switches from the
+# two-step quantize + matvec to the fused quantize -> bit-pack ->
+# dequantize-accumulate path, as the reference does.
 FUSED_MIN_DIM = 1 << 17
-CODE_BITS_CHOICES = (4, 8, 16)
 
 
 def code_bits_for(r_max) -> int | None:
@@ -30,6 +33,13 @@ def code_bits_for(r_max) -> int | None:
         if int(r_max) <= cb:
             return cb
     return None
+
+
+def fused_route(r_max, d: int) -> bool:
+    """Whether the digital aggregate of a d-entry payload quantized at up
+    to r_max bits takes the fused pack route: a packable width and
+    d >= FUSED_MIN_DIM."""
+    return code_bits_for(r_max) is not None and d >= FUSED_MIN_DIM
 
 
 def ota_combine_with_noise(g: torch.Tensor, alpha, noise: torch.Tensor,
@@ -69,27 +79,104 @@ def dithered_quantize_batch(gs: torch.Tensor, levels: torch.Tensor,
     return dithered_quantize_rows(gs.contiguous(), dither.contiguous(), scal)
 
 
+@dataclasses.dataclass
+class PackedGrads:
+    """Bit-packed device payloads (the digital uplink's wire format).
+
+    words holds each row's quantizer codes at ``code_bits`` per entry,
+    K = 32/code_bits codes per uint32 word (kept as int32), in the
+    reference's layout; scal holds each row's (||g||_inf, levels). Leading
+    dimensions are the gradients' (trials, devices).
+    """
+    words: torch.Tensor       # (..., W, LANES) int32
+    scal: torch.Tensor        # (..., 2)
+    code_bits: int
+    d: int
+
+
+def quantize_pack(gs: torch.Tensor, levels: torch.Tensor,
+                  dither: torch.Tensor, *, code_bits: int) -> PackedGrads:
+    """Dither -> quantize -> bit-pack every row of gs (..., d) in one
+    launch; levels (...,) = 2^{r} - 1 with r <= code_bits, dither f32."""
+    lead, d = gs.shape[:-1], gs.shape[-1]
+    g2 = gs.reshape(-1, d).contiguous()
+    scal = torch.stack([g2.abs().amax(dim=1),
+                        levels.reshape(-1).to(gs.dtype)], dim=1)
+    words = payload.quantize_pack_rows(
+        g2, dither.reshape(-1, d).contiguous(), scal, code_bits)
+    return PackedGrads(words.reshape(*lead, *words.shape[1:]),
+                       scal.reshape(*lead, 2), code_bits, d)
+
+
+def unpack_dequant(pk: PackedGrads) -> torch.Tensor:
+    """Decode a packed payload to its (..., d) dequantized floats, the
+    bit-exact output of ``dithered_quantize_batch`` on the same inputs."""
+    lead = pk.scal.shape[:-1]
+    out = payload.unpack_dequant_rows(
+        pk.words.reshape(-1, *pk.words.shape[-2:]), pk.scal.reshape(-1, 2),
+        pk.code_bits, pk.d)
+    return out.reshape(*lead, pk.d)
+
+
+def packed_weighted_sum(pk: PackedGrads,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """sum_i w_i * dequant(payload_i) over the device axis (the last
+    leading one), devices in index order, with an O(d) accumulator per
+    trial: one launch for all trials. weights (..., N) -> (..., d)."""
+    lead = pk.scal.shape[:-2]
+    n = pk.scal.shape[-2]
+    scal3 = torch.cat([pk.scal, weights.to(pk.scal.dtype)[..., None]],
+                      dim=-1).reshape(-1, n, 3)
+    words = pk.words.reshape(-1, n, *pk.words.shape[-2:])
+    return payload.packed_weighted_sum(words, scal3, pk.code_bits,
+                                       pk.d).reshape(*lead, pk.d)
+
+
 def quantized_weighted_sum(gs: torch.Tensor, levels: torch.Tensor,
                            dither: torch.Tensor, weights: torch.Tensor,
                            *, r_max=None, use_kernel: bool = True,
                            fused="auto") -> torch.Tensor:
-    """The digital aggregate sum_i w_i * quantize(g_i), two-step path.
+    """The digital aggregate sum_i w_i * quantize(g_i).
 
-    gs, dither: (..., N, d); levels, weights: (..., N). Quantize-dequantize
-    all rows in one launch, then the weighted matvec per leading index.
-    The reference's fused pack path (``fused=True``, or ``"auto"`` with a
-    packable ``r_max`` at d >= 2^17) is not ported yet and raises.
+    gs, dither: (..., N, d); levels, weights: (..., N). Two routes, chosen
+    as the reference chooses (``repro/kernels/ops.py:265-302``):
+
+      * two-step — quantize-dequantize all rows in one launch, then the
+        weighted matvec per leading index;
+      * fused — quantize straight into packed codes (one launch over all
+        rows), then unpack-dequantize-accumulate (one launch, one output
+        row per leading index), devices in index order.
+
+    ``fused="auto"`` fuses iff ``use_kernel`` and ``fused_route(r_max, d)``
+    (a packable ``r_max`` <= 16 bits and d >= FUSED_MIN_DIM), as the
+    reference; True/False force the route.
+    ``use_kernel=False`` with ``fused=True`` runs the sequential plain
+    version (same device order as the fused kernel, no packing).
     """
+    cb = code_bits_for(r_max)
     d = gs.shape[-1]
-    if fused is True or (fused == "auto" and use_kernel
-                         and code_bits_for(r_max) is not None
-                         and d >= FUSED_MIN_DIM):
-        raise NotImplementedError(
-            f"the fused quantize-pack digital path (d={d} >= "
-            f"{FUSED_MIN_DIM}) needs the payload kernels of ROADMAP "
-            "Queue 2 (quantize_pack_rows_2d, packed_weighted_sum_2d)")
-    gq = dithered_quantize_batch(gs.reshape(-1, d), levels.reshape(-1),
-                                 dither.reshape(-1, d),
-                                 use_kernel=use_kernel).reshape(gs.shape)
-    w = weights.to(gs.dtype).unsqueeze(-2)
-    return (w @ gq).squeeze(-2)
+    if fused == "auto":
+        fused = use_kernel and fused_route(r_max, d)
+    if not fused:
+        gq = dithered_quantize_batch(gs.reshape(-1, d), levels.reshape(-1),
+                                     dither.reshape(-1, d),
+                                     use_kernel=use_kernel).reshape(gs.shape)
+        w = weights.to(gs.dtype).unsqueeze(-2)
+        return (w @ gq).squeeze(-2)
+    if not use_kernel:
+        n = gs.shape[-2]
+        g3 = gs.reshape(-1, n, d)
+        scal3 = torch.stack([g3.abs().amax(dim=-1),
+                             levels.to(gs.dtype).expand(gs.shape[:-1])
+                             .reshape(-1, n),
+                             weights.to(gs.dtype).reshape(-1, n)], dim=-1)
+        out = ref.quantized_weighted_sum_ref(g3, dither.reshape(-1, n, d),
+                                             scal3)
+        return out.reshape(*gs.shape[:-2], d)
+    if cb is None:
+        raise ValueError(f"the fused quantized_weighted_sum needs a static "
+                         f"r_max <= {max(CODE_BITS_CHOICES)} (got "
+                         f"r_max={r_max})")
+    pk = quantize_pack(gs, levels.to(gs.dtype).expand(gs.shape[:-1]),
+                       dither, code_bits=cb)
+    return packed_weighted_sum(pk, weights)

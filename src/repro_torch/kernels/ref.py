@@ -2,9 +2,10 @@
 ``repro.kernels.ref``).
 
 Each repeats its kernel's arithmetic op for op, with multiply and add kept
-separate, so on the card a kernel and its plain version agree bit for
-bit. They serve CPU tensors and the tests; with a card present the main
-path reaches them only when ``use_kernel=False`` asks for them.
+separate and the weighted sum's devices in the kernel's order, so on the
+card a kernel and its plain version agree bit for bit. They serve CPU
+tensors and the tests; with a card present the main path reaches them
+only when ``use_kernel=False`` asks for them.
 """
 from __future__ import annotations
 
@@ -41,3 +42,113 @@ def dithered_quantize_rows_ref(g: torch.Tensor, u: torch.Tensor,
     q = torch.minimum(torch.clamp(lo + up, min=0.0), levels)
     out = -m + safe * q
     return torch.where(valid, out, torch.zeros_like(g))
+
+
+# ------------------------------------------------- payload (wire format)
+#
+# Layout of the packed payload (``repro/kernels/payload.py:71-81``): a row
+# of d entries, zero-padded (g = 0 and u = 0) to W*K*LANES, is laid out as
+# lane-rows of LANES entries; word (w, l) holds the codes of lane-rows
+# w*K + k, k = 0..K-1, at bits k*code_bits, K = 32 // code_bits. Words are
+# uint32 bits kept in int32 tensors (the CPU build of torch has no uint32
+# shifts or ors), so these versions compute in int64 masked to 32 bits.
+
+LANES = 128
+
+
+def payload_word_rows(d: int, code_bits: int) -> int:
+    """W, the word rows of one packed row of d entries."""
+    per = (32 // code_bits) * LANES
+    return -(-d // per)
+
+
+def _safe_step(scal: torch.Tensor):
+    """(valid, safe = 2m/levels or 1, m, levels) columns of a (R, >=2)
+    per-row scal of (m, levels, ...)."""
+    m, levels = scal[:, :1], scal[:, 1:2]
+    valid = (levels > 0) & (m > 0)
+    safe = torch.where(valid, 2.0 * m / torch.where(levels > 0, levels, 1.0),
+                       1.0)
+    return valid, safe, m, levels
+
+
+def quantize_pack_rows_ref(g: torch.Tensor, u: torch.Tensor,
+                           scal: torch.Tensor, code_bits: int) -> torch.Tensor:
+    """Dither -> quantize -> bit-pack each row (``_quantize_codes`` +
+    ``_pack_words``).
+
+    g: (R, d) f64/f32; u: (R, d) f32 dither; scal: (R, 2) in g's dtype,
+    columns (m = ||g_r||_inf, levels <= 2^code_bits - 1). Returns words
+    (R, W, LANES) int32. Rows with m = 0 or levels <= 0 code to 0.
+    """
+    R, d = g.shape
+    K = 32 // code_bits
+    W = payload_word_rows(d, code_bits)
+    pad = W * K * LANES - d
+    gp = torch.nn.functional.pad(g, (0, pad))
+    up = torch.nn.functional.pad(u, (0, pad)).to(g.dtype)
+    valid, safe, m, levels = _safe_step(scal)
+    x = (gp + m) / safe
+    lo = torch.floor(x)
+    q = torch.minimum(torch.clamp(lo + (up < (x - lo)).to(g.dtype), min=0.0),
+                      levels)
+    q = torch.where(valid, q, 0.0).to(torch.int64).reshape(R, W, K, LANES)
+    word = q[:, :, 0]
+    for k in range(1, K):
+        word = word | (q[:, :, k] << (k * code_bits))
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+
+
+def _unpack_codes(words: torch.Tensor, code_bits: int, d: int) -> torch.Tensor:
+    """(R, W, LANES) words -> (R, d) int64 codes (``_unpack_words``)."""
+    K = 32 // code_bits
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    mask = (1 << code_bits) - 1
+    q = torch.stack([(w64 >> (k * code_bits)) & mask for k in range(K)],
+                    dim=2)                                  # (R, W, K, LANES)
+    return q.reshape(words.shape[0], -1)[:, :d]
+
+
+def unpack_dequant_rows_ref(words: torch.Tensor, scal: torch.Tensor,
+                            code_bits: int, d: int) -> torch.Tensor:
+    """Unpack -> dequantize (``_unpack_words`` + ``_dequant``): row r's
+    codes q to ``-m + safe*q`` in scal's dtype; degenerate rows to 0.
+
+    words: (R, W, LANES) int32; scal: (R, >=2) columns (m, levels, ...).
+    Returns (R, d).
+    """
+    valid, safe, m, _ = _safe_step(scal)
+    qf = _unpack_codes(words, code_bits, d).to(scal.dtype)
+    return torch.where(valid, -m + safe * qf, 0.0)
+
+
+def packed_weighted_sum_ref(words: torch.Tensor, scal: torch.Tensor,
+                            code_bits: int, d: int) -> torch.Tensor:
+    """sum_i w_i * dequant(unpack(p_i)) per trial, devices added one at a
+    time in index order from zeros (``repro/kernels/ref.py:33-52``).
+
+    words: (T, N, W, LANES) int32; scal: (T, N, 3) columns (m, levels, w).
+    Returns (T, d) in scal's dtype.
+    """
+    T, N = scal.shape[:2]
+    acc = torch.zeros(T, d, dtype=scal.dtype, device=scal.device)
+    for i in range(N):
+        deq = unpack_dequant_rows_ref(words[:, i], scal[:, i], code_bits, d)
+        acc = acc + scal[:, i, 2:3] * deq
+    return acc
+
+
+def quantized_weighted_sum_ref(g: torch.Tensor, u: torch.Tensor,
+                               scal: torch.Tensor) -> torch.Tensor:
+    """The fused path's sequential oracle without packing: per trial,
+    ``acc + w_i * quantize(g_i)`` over devices 0..N-1 from zeros.
+
+    g: (T, N, d); u: (T, N, d) f32; scal: (T, N, 3) columns (m, levels, w).
+    """
+    T, N, d = g.shape
+    acc = torch.zeros(T, d, dtype=g.dtype, device=g.device)
+    for i in range(N):
+        gq = dithered_quantize_rows_ref(g[:, i], u[:, i], scal[:, i, 0],
+                                        scal[:, i, 1])
+        acc = acc + scal[:, i, 2:3] * gq
+    return acc

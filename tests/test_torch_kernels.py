@@ -169,16 +169,6 @@ def test_quantized_weighted_sum_within_4ulp(ref, dt, d):
                  scale=np.max(np.abs(want)))
 
 
-def test_fused_path_raises_until_ported():
-    g = torch.zeros(2, 1 << 17, dtype=torch.float64)
-    u = torch.zeros(2, 1 << 17)
-    lv = torch.ones(2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ops.quantized_weighted_sum(g, lv, u, lv, r_max=8)
-    with pytest.raises(NotImplementedError):
-        ops.quantized_weighted_sum(g[:, :64], lv, u[:, :64], lv, fused=True)
-
-
 def test_wrappers_reject_what_the_kernels_do_not_take():
     g = torch.zeros(2, 8, dtype=torch.float64)
     with pytest.raises(TypeError):
