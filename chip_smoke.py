@@ -7,10 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device — the card's name and count, and nvidia-smi's name and power
    limit line;
-2. build — nvcc builds the three sources of
+2. build — nvcc builds the four sources of
    ``src/repro_torch/kernels/csrc`` (one process per source, all started
    together), with ptxas' register report;
-3. kernels — each of the five kernels against its plain PyTorch version
+3. kernels — each of the six kernels against its plain PyTorch version
    on the card, bit-equal, at the main path's shapes and at large ones,
    with degenerate and ragged rows; the payload decoder ``unpack(pack(g))``
    also bit-equal to the two-step quantizer kernel on the same inputs;
@@ -25,17 +25,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      1000 samples each, 4 trials, 30 rounds) and ProposedDigital (N = 10,
      4 trials, 40 rounds, 150 s budget; then 20 rounds under a 1 s budget
      that stops it mid-run);
+     Fig. 2's OTA suite (OPC OTA-FL, OPC OTA-Comp, LCPC OTA-Comp, BB-FL
+     Interior and Alternative; N = 50, 30 rounds) and digital suite (Best
+     Channel, Best Channel-Norm, Proportional Fairness, UQOS, QML and
+     FedTOE; N = 10, K = 4, 40 rounds under the figure's 150 s budget);
      Fig. 3 (MLP 3072 -> 48 -> 10, d = 147,994, N = 10 devices with two
-     classes and 100 samples each, 4 trials): ProposedOTA (30 rounds) and
-     ProposedDigital (40 rounds), the latter on the fused route (8-bit
-     codes packed once a round, one packed weighted sum a round, no
-     two-step quantizer).
+     classes and 100 samples each, 4 trials): ProposedOTA (30 rounds),
+     ProposedDigital (40 rounds) and Best Channel (10 rounds, r = 6), the
+     digital ones on the fused route (8-bit codes packed once a round, one
+     packed weighted sum a round, no two-step quantizer).
    Each run's launch counts start at 0 and must be the expected ones;
-   the loss must be finite and fall; the same run with the plain versions
-   (``use_kernel=False``) must give the same trajectory to the bit; the
-   dither stream made on the card must equal the CPU's to the bit; both
-   schemes at a small size and at Fig. 3 width must agree with the port's
-   CPU run (which the tests tie to the JAX reference);
+   the loss must be finite (and fall, for the proposed schemes); the same
+   run with the plain versions (``use_kernel=False``) must give the same
+   trajectory to the bit; the dither stream made on the card must equal
+   the CPU's to the bit; every scheme at a small size, and the proposed
+   ones at Fig. 3 width, must agree with the port's CPU run (which the
+   tests tie to the JAX reference);
 5. the kernel table, nvidia-smi's line, and the result line.
 """
 import json
@@ -268,6 +273,41 @@ def payload_case(rows, d, dt, cb, seed, trials):
     return out_rows
 
 
+def reduce_case(rows, d, gdt, seed):
+    """Per-row (max |g|, sum g^2) against its plain version: both add in
+    the kernel's order, so bit-equal. Row 0 is all zero."""
+    import torch
+    from repro_torch.kernels import ref, row_maxabs_sumsq
+    acc = torch.float32 if gdt == torch.bfloat16 else gdt
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(rows, d, generator=gen, device="cuda", dtype=acc)
+    g = (g * (torch.rand(rows, 1, generator=gen, device="cuda", dtype=acc)
+              * 5)).to(gdt)
+    g[0] = 0.0
+    out = row_maxabs_sumsq(g, acc)
+    plain = ref.row_maxabs_sumsq_ref(g, acc)
+    torch.cuda.synchronize()
+    check(out.shape == (rows, 2) and out.dtype == acc
+          and bool(torch.isfinite(out).all()) and not bool(out[0].any()),
+          f"row_maxabs_sumsq output at ({rows}, {d}) {gdt}")
+    err = float((out - plain).abs().max())
+    check(torch.equal(out, plain),
+          f"row_maxabs_sumsq != plain at ({rows}, {d}) {gdt}: max err {err}")
+    nbytes = rows * d * g.element_size() + rows * 2 * out.element_size()
+    iters = 50 if nbytes < 64e6 else 4
+    ms = device_ms(lambda: row_maxabs_sumsq(g, acc), iters)
+    plain_ms = device_ms(lambda: ref.row_maxabs_sumsq_ref(g, acc), iters)
+    # one PyTorch call reading the same bytes for half of the function
+    lib_ms = device_ms(
+        lambda: torch.linalg.vector_norm(g, dim=1, dtype=acc), iters)
+    b_ms, b_by = bound(nbytes, 3 * rows * d, str(acc).split(".")[1])
+    return dict(shape=[rows, d], dtype=str(gdt).split(".")[1],
+                acc_dtype=str(acc).split(".")[1], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library="torch.linalg.vector_norm (the sum half only)",
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # --------------------------------------------------------------- main path
 
 def fig2_setup(n_devices, n_train_per_class, t_max_s=0.2):
@@ -356,13 +396,17 @@ def fig3_setup(n_devices=10, t_max_s=3.0):
     return task, ds, dep, eta, ota_params, dig_params
 
 
-def run_path(name, trainer, engine_plain, agg, expect, bites=False, **run):
+def run_path(name, trainer, engine_plain, agg, expect, bites=False,
+             must_fall=True, **run):
     """Drive one scheme through the trainer with the launch counts at 0,
     read them just after, then the same run on the plain versions; both
     must agree bit for bit. ``expect`` maps kernels to the launches the
     run must make. With ``bites``, the run's ``time_budget_s`` must stop
     it mid-run: the wall-clock and the model freeze over the last eval
-    slots."""
+    slots; with ``bites=None`` it may or may not (the figure's budget over
+    a baseline whose airtime depends on the draws). ``must_fall``: the
+    loss must fall over the run (the proposed schemes); a baseline's must
+    only be finite."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -381,18 +425,22 @@ def run_path(name, trainer, engine_plain, agg, expect, bites=False, **run):
     check(loss.shape == (run["trials"], run["rounds"] // run["eval_every"]
                          + 1) and np.all(np.isfinite(loss)),
           f"{name}: loss not finite / wrong shape {loss.shape}")
-    check(loss[:, -1].mean() < loss[:, 0].mean(),
+    fell = bool(loss[:, -1].mean() < loss[:, 0].mean())
+    check(fell or not must_fall,
           f"{name}: loss did not fall: {loss.mean(0).tolist()}")
     wall = log.wall_time_s
+    budget = run.get("time_budget_s", np.inf)
+    bit = bool(wall[-1] >= budget)
     if bites:
-        check(wall[1] < wall[-1] and wall[-1] == wall[-2]
-              and wall[-1] >= run["time_budget_s"]
+        check(wall[1] < wall[-1] and wall[-1] == wall[-2] and bit
               and np.array_equal(loss[:, -1], loss[:, -2]),
               f"{name}: the budget did not stop the run mid-way: "
               f"wall {wall.tolist()}, loss {loss.mean(0).tolist()}")
+    elif bites is None:
+        check(np.all(np.diff(wall) >= 0) and wall[-1] > 0,
+              f"{name}: wall-clock not increasing: {wall.tolist()}")
     else:
-        check(np.all(np.diff(wall) > 0) and wall[-1] < run.get(
-            "time_budget_s", np.inf),
+        check(np.all(np.diff(wall) > 0) and not bit,
               f"{name}: the budget bit: wall {wall.tolist()}")
     plain = engine_plain.run(agg, **run)
     check(np.array_equal(plain.global_loss, log.global_loss)
@@ -402,9 +450,9 @@ def run_path(name, trainer, engine_plain, agg, expect, bites=False, **run):
           f"{log.global_loss.tolist()} vs {plain.global_loss.tolist()}")
     emit(phase="main_path", run=name, scheme=log.scheme, launches=counts,
          rounds=run["rounds"], trials=run["trials"],
-         time_budget_s=run.get("time_budget_s"), budget_bites=bites,
+         time_budget_s=run.get("time_budget_s"), budget_bit=bit,
          seconds=seconds, rounds_per_s=run["rounds"] / seconds,
-         loss=log.global_loss.mean(0).tolist(),
+         loss=log.global_loss.mean(0).tolist(), loss_fell=fell,
          accuracy=log.accuracy.mean(0).tolist(),
          final_accuracy=log.final_accuracy(),
          wall_time_s=wall.tolist(), plain_equal=True)
@@ -426,11 +474,29 @@ def dither_matches_cpu(trials, n, d, rounds):
          bit_equal=True)
 
 
+def ota_suite(dep, consts):
+    """Fig. 2's OTA baselines (``repro/api/schemes.py:26-28`` without the
+    proposed and ideal ones), from the port's constructors."""
+    from repro_torch.core import baselines as B
+    return (B.OPCOTAFL(*consts), B.OPCOTAComp(*consts),
+            B.LCPCOTAComp(dep, *consts), B.BBFLInterior(dep, *consts),
+            B.BBFLAlternative(dep, *consts))
+
+
+def digital_suite(dep, dconsts, k=4):
+    """Fig. 2's digital baselines (``repro/api/schemes.py:30-32``), K = 4
+    (``repro/api/spec.py:86``), the constructors' other defaults."""
+    from repro_torch.core import baselines as B
+    return tuple(cls(dep, *dconsts, k=k) for cls in (
+        B.BestChannel, B.BestChannelNorm, B.PropFairness, B.UQOS, B.QML,
+        B.FedTOE))
+
+
 def small_matches_cpu():
     """The port at a small size on the card against its CPU run, for
-    both schemes of the main path (the tests tie the CPU run to the JAX
+    every scheme of the main path (the tests tie the CPU run to the JAX
     reference): 8x8 images (d = 650), 6 devices, the closed-form
-    anchors."""
+    anchors for the proposed schemes."""
     import numpy as np
     from repro_torch.core import baselines as B
     from repro_torch.core import digital_design, ota_design
@@ -459,25 +525,37 @@ def small_matches_cpu():
         bandwidth_hz=cfg.bandwidth_hz, t_max_s=0.2, weights=w)
     # f32 gradients on the card and on the CPU differ in the last ulps:
     # the reference's engine-vs-oracle slack for OTA; for digital those
-    # ulps may flip a dither code, the tests' port-vs-JAX slack
-    for agg, rel_tol in (
+    # ulps may flip a dither code, the tests' port-vs-JAX slack. The
+    # capacity-rate latencies go through log, whose last bit may differ
+    # between the card and the CPU: their wall-clocks are held within
+    # 8 ulps, as the tests hold them against the reference
+    consts = (task.dim, task.g_max, cfg.energy_per_symbol, cfg.noise_power)
+    dconsts = consts + (cfg.bandwidth_hz,)
+    card_t = FLTrainer(task, ds, dep, eta)
+    cpu_t = FLTrainer(task, ds, dep, eta, device="cpu")
+    for agg, rel_tol, wall_ulps in (
             (B.ProposedOTA(ota_design.params_from_gamma(
                 ospec, ota_design.anchor_min_noise(ospec)),
-                label="Proposed OTA-FL (min-noise anchor)"), 1e-5),
+                label="Proposed OTA-FL (min-noise anchor)"), 1e-5, 0),
             (B.ProposedDigital(digital_design.finalize(
                 dspec, *digital_design.anchor_uniform(dspec)),
-                label="Proposed Digital FL (uniform anchor)"), 1e-3)):
+                label="Proposed Digital FL (uniform anchor)"), 1e-3, 0),
+            *[(agg, 1e-5, 0) for agg in ota_suite(dep, consts)],
+            *[(agg, 1e-3, 8) for agg in digital_suite(dep, dconsts)]):
         run = dict(rounds=20, trials=2, eval_every=10, seed=5)
-        card = FLTrainer(task, ds, dep, eta).run(agg, **run)
-        cpu = FLTrainer(task, ds, dep, eta, device="cpu").run(agg, **run)
+        card = card_t.run(agg, **run)
+        cpu = cpu_t.run(agg, **run)
         rel = float(np.max(np.abs(card.global_loss - cpu.global_loss)
                            / np.abs(cpu.global_loss)))
-        check(rel <= rel_tol and np.array_equal(card.wall_time_s,
-                                                cpu.wall_time_s),
+        ulps = float(np.max(np.abs(card.wall_time_s - cpu.wall_time_s)
+                            / np.spacing(np.maximum(cpu.wall_time_s,
+                                                    1e-300))))
+        check(rel <= rel_tol and ulps <= wall_ulps,
               f"{card.scheme}: card vs CPU loss differs by {rel} relative "
-              f"(limit {rel_tol}) or wall-clock differs")
+              f"(limit {rel_tol}) or wall-clock by {ulps} ulps (limit "
+              f"{wall_ulps})")
         emit(phase="small_vs_cpu", scheme=card.scheme, max_rel_loss_diff=rel,
-             limit=rel_tol, wall_time_equal=True)
+             limit=rel_tol, wall_time_max_ulps=ulps, wall_limit=wall_ulps)
 
 
 def fig3_matches_cpu():
@@ -544,7 +622,7 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          kernels=["ota_combine", "dithered_quantize_rows",
                   "quantize_pack_rows", "unpack_dequant_rows",
-                  "packed_weighted_sum"])
+                  "packed_weighted_sum", "row_maxabs_sumsq"])
 
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
@@ -575,6 +653,17 @@ def main() -> int:
             emit(phase="kernel", kernel=kname, **r)
             payload_rows.setdefault(kname, {})[(rows, d, dt, cb)] = r
 
+    # the per-row statistics: the digital suite's main path (Best
+    # Channel-Norm over 4 trials x 10 devices at d = 7850, f64), Fig. 3's
+    # width, the payload benchmark's case in f32 and bf16, ragged widths
+    reduce_rows = {}
+    for rows, d, dt in ((40, 7850, f64), (40, 147994, f64),
+                        (256, 1000000, f32), (256, 1000000, bf16),
+                        (5, 1, f64), (5, 1001, f32), (5, 1001, bf16)):
+        r = reduce_case(rows, d, dt, seed=d % 89)
+        emit(phase="kernel", kernel="row_maxabs_sumsq", **r)
+        reduce_rows[(rows, d, dt)] = r
+
     # 4. the main paths: Fig. 2 and Fig. 3 at full width
     launches = {}
 
@@ -584,7 +673,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     none = {"quantize_pack_rows": 0, "packed_weighted_sum": 0,
-            "unpack_dequant_rows": 0}
+            "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0}
     task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
@@ -593,6 +682,13 @@ def main() -> int:
                                          "anchor)"),
              {"ota_combine": 30, "dithered_quantize_rows": 0, **none},
              rounds=30, trials=4, eval_every=10, seed=0)
+    # Fig. 2's OTA suite: one epilogue a round each, nothing else
+    cfg = dep.cfg
+    consts = (task.dim, task.g_max, cfg.energy_per_symbol, cfg.noise_power)
+    for agg in ota_suite(dep, consts):
+        main_run(f"Fig. 2 {agg.name}", trainer, plain, agg,
+                 {"ota_combine": 30, "dithered_quantize_rows": 0, **none},
+                 must_fall=False, rounds=30, trials=4, eval_every=10, seed=0)
     del trainer, plain
     task, ds, dep, eta, _, dig_p = fig2_setup(10, 1200)
     trainer = FLTrainer(task, ds, dep, eta)
@@ -608,6 +704,19 @@ def main() -> int:
     main_run("Fig. 2 ProposedDigital, budget", trainer, plain, dig,
              {"dithered_quantize_rows": 20, **none}, bites=True,
              rounds=20, trials=4, eval_every=4, seed=0, time_budget_s=1.0)
+    # Fig. 2's digital suite under the figure's budget: one two-step
+    # quantizer launch a round each; Best Channel-Norm scores its devices
+    # with one row-statistics launch a round
+    cfg = dep.cfg
+    dconsts = (task.dim, task.g_max, cfg.energy_per_symbol, cfg.noise_power,
+               cfg.bandwidth_hz)
+    for agg in digital_suite(dep, dconsts):
+        norm = isinstance(agg, B.BestChannelNorm)
+        main_run(f"Fig. 2 {agg.name}", trainer, plain, agg,
+                 {"dithered_quantize_rows": 40, "ota_combine": 0,
+                  **none, "row_maxabs_sumsq": 40 if norm else 0},
+                 bites=None, must_fall=False, rounds=40, trials=4,
+                 eval_every=20, seed=0, time_budget_s=150.0)
     del trainer, plain
     task, ds, dep, eta, ota_p, dig_p = fig3_setup()
     trainer = FLTrainer(task, ds, dep, eta)
@@ -623,8 +732,18 @@ def main() -> int:
                                             "anchor)"),
              {"quantize_pack_rows": 40, "packed_weighted_sum": 40,
               "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
-              "ota_combine": 0},
+              "ota_combine": 0, "row_maxabs_sumsq": 0},
              rounds=40, trials=4, eval_every=20, seed=9)
+    # a baseline on the fused route: Best Channel's 6 bits pack as 8-bit
+    # codes at d = 147,994
+    cfg = dep.cfg
+    main_run("Fig. 3 Best Channel", trainer, plain,
+             B.BestChannel(dep, task.dim, task.g_max, cfg.energy_per_symbol,
+                           cfg.noise_power, cfg.bandwidth_hz, k=4),
+             {"quantize_pack_rows": 10, "packed_weighted_sum": 10,
+              "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
+              "ota_combine": 0, "row_maxabs_sumsq": 0},
+             must_fall=False, rounds=10, trials=4, eval_every=5, seed=9)
     del trainer, plain
     dither_matches_cpu(4, 10, 7850, (0, 1, 39))
     dither_matches_cpu(4, 10, 147994, (0, 39))
@@ -633,7 +752,8 @@ def main() -> int:
 
     # 5. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
-    # decoder, is on no engine path)
+    # decoder, is on no engine path; row_maxabs_sumsq at Best
+    # Channel-Norm's (4 trials x 10 devices, 7850) f64)
     main = (40, 147994, f64, 8)
     table = []
     for kname, source, replaces, rows, row in (
@@ -655,7 +775,11 @@ def main() -> int:
             ("packed_weighted_sum", PAYLOAD_SOURCE,
              "src/repro/kernels/payload.py:225",
              payload_rows["packed_weighted_sum"],
-             payload_rows["packed_weighted_sum"][main])):
+             payload_rows["packed_weighted_sum"][main]),
+            ("row_maxabs_sumsq",
+             "src/repro_torch/kernels/csrc/row_reduce.cu",
+             "src/repro/kernels/row_reduce.py:50", reduce_rows,
+             reduce_rows[(40, 7850, f64)])):
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname],

@@ -3,10 +3,13 @@
 
     python3 scripts/profile_port.py [--rounds 40]
 
-Builds the same four cells as ``chip_smoke.py``'s main path, 4 trials
-each: Fig. 2 ProposedOTA (N = 50) and ProposedDigital (N = 10) at
-d = 7850, and Fig. 3 ProposedOTA and ProposedDigital (N = 10, the MLP at
-d = 147,994, the digital one on the fused payload route). It warms each
+Builds six cells of ``chip_smoke.py``'s main path, 4 trials each: Fig. 2
+ProposedOTA (N = 50) and ProposedDigital (N = 10) at d = 7850, two of
+Fig. 2's digital baselines at the same size (Best Channel-Norm, which
+scores devices through the row-statistics kernel, and FedTOE, whose bit
+allocation is planned on the host once a run), and Fig. 3 ProposedOTA and
+ProposedDigital (N = 10, the MLP at d = 147,994, the digital one on the
+fused payload route). It warms each
 up, then runs ``--rounds`` rounds under ``torch.profiler`` and prints one
 JSON line per cell: host wall time per round (one run's host-side
 fading/noise set-up and final eval included), device time per round
@@ -31,6 +34,7 @@ FAMILIES = (                      # first match wins, on the kernel's name
     ("quantize_pack_rows", ("quantize_pack",)),
     ("packed_weighted_sum", ("packed_weighted_sum",)),
     ("unpack_dequant_rows", ("unpack_dequant",)),
+    ("row_maxabs_sumsq", ("row_maxabs",)),
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_kernel")),
     ("bitwise/shift (threefry)", ("bitwise", "shift")),
     ("memcpy host to card", ("memcpy htod",)),
@@ -101,10 +105,18 @@ def main() -> int:
                         args.rounds, trials=4, seed=0)
     print(json.dumps(dict(cell="fig2_ota N=50", **cell)), flush=True)
     task, ds, dep, eta, _, dig_p = chip_smoke.fig2_setup(10, 1200)
-    cell = profile_cell(FLTrainer(task, ds, dep, eta),
-                        B.ProposedDigital(dig_p), args.rounds, trials=4,
-                        seed=0, time_budget_s=150.0)
-    print(json.dumps(dict(cell="fig2_digital N=10", **cell)), flush=True)
+    cfg = dep.cfg
+    dconsts = (task.dim, task.g_max, cfg.energy_per_symbol, cfg.noise_power,
+               cfg.bandwidth_hz)
+    trainer = FLTrainer(task, ds, dep, eta)
+    for label, agg in (("fig2_digital N=10", B.ProposedDigital(dig_p)),
+                       ("fig2_best_channel_norm N=10 K=4",
+                        B.BestChannelNorm(dep, *dconsts, k=4)),
+                       ("fig2_fedtoe N=10 K=4", B.FedTOE(dep, *dconsts,
+                                                          k=4))):
+        cell = profile_cell(trainer, agg, args.rounds, trials=4, seed=0,
+                            time_budget_s=150.0)
+        print(json.dumps(dict(cell=label, **cell)), flush=True)
     task, ds, dep, eta, ota_p, dig_p = chip_smoke.fig3_setup()
     trainer = FLTrainer(task, ds, dep, eta)
     cell = profile_cell(trainer, B.ProposedOTA(ota_p), args.rounds,

@@ -83,7 +83,106 @@ def digital_round(params: DigitalParams, grads: torch.Tensor,
     # devices add in index order, as the reference's TDMA loop does: the
     # wall-clock a time budget compares against is then the reference's
     # to the last bit (chi is 0/1, so every product is exact)
-    latency = torch.zeros(chi.shape[:-1], dtype=chi.dtype, device=dev)
-    for m in range(chi.shape[-1]):
-        latency = latency + chi[..., m] * lat_m[m]
-    return acc, chi, latency
+    return acc, chi, sum_in_order(chi * lat_m)
+
+
+# ------------------------------------------- selection primitives (Sec. V)
+#
+# The digital baselines are built from three pieces, counterparts of
+# ``repro/core/digital.py:181-266``: capacity rates, top-K selection as a
+# 0/1 mask, and FedTOE's greedy bit allocation (host NumPy: its inputs are
+# the replayed selection draws and static rates, all host data).
+
+#: The f64 constant ``jnp.log2`` multiplies ``log`` by (XLA lowers
+#: log2(x) to log(x) * (1 / ln 2)).
+INV_LN2 = 1.4426950408889634
+
+
+def capacity_rate(habs: torch.Tensor, e_s: float, n0: float) -> torch.Tensor:
+    """Instantaneous spectral efficiency log2(1 + E_s |h|^2 / N0) [b/s/Hz],
+    computed as the reference's lowering computes it: |h|^2 as a product,
+    log2 as log times 1/ln 2. The log itself may differ from XLA's in the
+    last bit."""
+    return torch.log(1.0 + e_s * (habs * habs) / n0) * INV_LN2
+
+
+def topk_mask(score: torch.Tensor, k: int) -> torch.Tensor:
+    """0/1 mask (score's dtype) of the k highest scores along the last
+    axis: a stable ascending argsort reversed, as the reference's
+    ``jnp.argsort(score)[::-1][:k]`` (ties go to the higher index)."""
+    order = torch.argsort(score, dim=-1, stable=True).flip(-1)
+    return torch.zeros_like(score).scatter(-1, order[..., :k], 1.0)
+
+
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, entries added in index order from 0, as
+    XLA's CPU reduce adds up to 32 of them (ROADMAP Queue 3): a scheme's
+    TDMA latency then matches the reference's bit for bit."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for m in range(x.shape[-1]):
+        acc = acc + x[..., m]
+    return acc
+
+
+def greedy_bit_alloc(sel: np.ndarray, rates: np.ndarray, *, dim: int,
+                     bandwidth_hz: float, t_budget_s: float, r_max: int):
+    """FedTOE's greedy RB/bit allocation for one round, host NumPy f64,
+    op for op as ``repro.core.digital.greedy_bit_alloc_jax``: walk the
+    scheduled set in decreasing-rate order (stable) giving each device one
+    bit while its minimum payload fits the round budget, then grant +1 bit
+    to the device with the best variance-reduction-per-latency gain (first
+    maximum) until the budget or ``r_max`` stops it. Latency sums add the
+    devices in index order.
+
+    Args:
+      sel:   (k,) int device indices scheduled this round.
+      rates: (N,) static per-device spectral efficiencies R_m.
+
+    Returns:
+      (bits, in_alloc): (N,) f64 bit-widths (0 outside the allocation) and
+      the 0/1 allocation mask.
+    """
+    n = rates.shape[0]
+    rates = np.asarray(rates, np.float64)
+    safe_rates = np.maximum(rates, 1e-9)
+    sel = np.asarray(sel, np.int64)
+    sel_sorted = sel[np.argsort(-rates[sel], kind="stable")]
+    t_one = (64.0 + dim) / (bandwidth_hz * safe_rates[sel_sorted])
+    in_alloc = np.zeros(n)
+    used = 0.0
+    for m, t1 in zip(sel_sorted, t_one):
+        fits = used + t1 <= t_budget_s
+        used = used + (t1 if fits else 0.0)
+        in_alloc[m] += float(fits)
+    per_bit_s = dim / (bandwidth_hz * safe_rates)
+    bits = in_alloc.copy()
+    done = bool(np.sum(in_alloc) == 0)
+    while not done:
+        eligible = (in_alloc > 0) & (bits < r_max)
+        b_safe = np.where(in_alloc > 0, bits, 1.0)
+        dv = (1.0 / (2.0 ** b_safe - 1.0) ** 2
+              - 1.0 / (2.0 ** (b_safe + 1.0) - 1.0) ** 2)
+        gain = np.where(eligible, dv / per_bit_s, 0.0)
+        best = int(np.argmax(gain))
+        bits_new = bits.copy()
+        bits_new[best] += 1.0
+        accept = gain[best] > 0.0 and alloc_latency(
+            bits_new, in_alloc, rates, dim=dim,
+            bandwidth_hz=bandwidth_hz) <= t_budget_s
+        if accept:
+            bits = bits_new
+        done = not accept
+    return bits, in_alloc
+
+
+def alloc_latency(bits: np.ndarray, in_alloc: np.ndarray, rates: np.ndarray,
+                  *, dim: int, bandwidth_hz: float) -> float:
+    """TDMA time of an allocation at static rates (host NumPy f64):
+    sum_m in_alloc_m (64 + d bits_m) / (B max(R_m, 1e-9)), devices added in
+    index order."""
+    terms = (in_alloc * (64.0 + dim * bits)
+             / (bandwidth_hz * np.maximum(rates, 1e-9)))
+    total = 0.0
+    for v in terms:
+        total = total + v
+    return total

@@ -69,3 +69,127 @@ def ota_round(params: OTAParams, grads: torch.Tensor, habs: torch.Tensor,
     ghat = ops.ota_combine_with_noise(acc, params.alpha, z,
                                       use_kernel=use_kernel)
     return ghat, chi
+
+
+def geomspace(start: torch.Tensor, stop: torch.Tensor,
+              num: int) -> torch.Tensor:
+    """``jnp.geomspace(start, stop, num)`` for positive bounds, batched:
+    (...,) -> (..., num). Built as JAX builds it: lin = a (1 - s) + b s
+    with a, b = log10 of the bounds and s = j/(num - 1), the last point b
+    itself, then 10 ** lin. torch's log10 and pow may differ from XLA's in
+    the last bits."""
+    a = torch.log10(start)[..., None]
+    b = torch.log10(stop)[..., None]
+    s = torch.arange(num - 1, dtype=start.dtype,
+                     device=start.device) / (num - 1)
+    lin = torch.cat([a * (1 - s) + b * s, b], dim=-1)
+    return torch.pow(10.0, lin)
+
+
+def opc_ota_comp_eta(habs: torch.Tensor, *, dim: int, g_max: float,
+                     e_s: float, n0: float, n_grid: int) -> torch.Tensor:
+    """[19] OPC OTA-Comp's per-round PS scale eta (``repro/fl/engine.py:
+    223-241``), batched: habs (..., N) -> (...,). The MSE proxy
+    G^2 sum_m (c_m - 1)^2 / N^2 + d N0 / (N^2 eta), with
+    c_m = min(b_bar, sqrt(eta)/|h_m|) |h_m| / sqrt(eta), is scored on an
+    n_grid-point geometric grid from (b_bar min|h|)^2 1e-4 to
+    (b_bar max|h|)^2 1e4; the first minimizer wins."""
+    n = habs.shape[-1]
+    b_bar = float(np.sqrt(dim * e_s) / g_max)
+    lo = b_bar * habs.amin(-1)
+    hi = b_bar * habs.amax(-1)
+    # squares as products, as XLA lowers x ** 2
+    etas = geomspace(torch.clamp(lo * lo * 1e-4, min=1e-300), hi * hi * 1e4,
+                     n_grid)                                # (..., n_grid)
+    root = torch.sqrt(etas)[..., None]
+    b = torch.clamp(root / habs[..., None, :], max=b_bar)   # (..., G, N)
+    c1 = b * habs[..., None, :] / root - 1.0
+    mses = (g_max ** 2 * (c1 * c1).sum(-1) / n ** 2
+            + dim * n0 / (n ** 2 * etas))
+    return etas.gather(-1, torch.argmin(mses, -1, keepdim=True))[..., 0]
+
+
+def opc_ota_fl_round(grads: torch.Tensor, habs: torch.Tensor,
+                     z01: torch.Tensor, *, dim: int, g_max: float,
+                     e_s: float, n0: float, use_kernel: bool = True):
+    """[20] genie-aided OPC OTA-FL round, batched over leading (trial)
+    dimensions; mirrors ``repro.core.ota.opc_ota_fl_round_jax``.
+
+    Every include-the-k-strongest candidate k = 1..N is scored at once by
+    the bias/noise proxy (1 - k/N)^2 G^2 + d N0 / (k gamma_k)^2; the first
+    minimizer wins (the reference's argmin). Devices are ranked by a stable
+    ascending argsort, reversed, as ``jnp.argsort(habs)[::-1]``.
+
+    Args: grads (..., N, d); habs (..., N); z01 (..., d).
+    Returns: (ghat (..., d), chi (..., N)).
+    """
+    n = habs.shape[-1]
+    order = torch.argsort(habs, dim=-1, stable=True).flip(-1)
+    habs_desc = habs.gather(-1, order)
+    ks = torch.arange(1, n + 1, dtype=torch.float64, device=habs.device)
+    gammas = float(np.sqrt(dim * e_s)) * habs_desc / g_max
+    # squares as products, as XLA lowers x ** 2
+    short = 1.0 - ks / n
+    kg = ks * gammas
+    scores = g_max ** 2 * (short * short) + dim * n0 / (kg * kg)
+    kidx = torch.argmin(scores, dim=-1, keepdim=True)    # first minimum
+    k = (kidx + 1).to(torch.float64)
+    gamma = gammas.gather(-1, kidx)
+    ranked = (torch.arange(n, device=habs.device) <= kidx).to(grads.dtype)
+    chi = torch.zeros_like(ranked).scatter(-1, order, ranked)
+    acc = gamma * (chi.unsqueeze(-2) @ grads).squeeze(-2)
+    ghat = ops.ota_combine_with_noise(acc, (k * gamma).squeeze(-1),
+                                      float(np.sqrt(n0)) * z01,
+                                      use_kernel=use_kernel)
+    return ghat, chi
+
+
+def bbfl_round(grads: torch.Tensor, habs: torch.Tensor, z01: torch.Tensor,
+               t: int, *, dim: int, g_max: float, e_s: float, n0: float,
+               gamma_odd: float, mask_odd, gamma_even: float, mask_even,
+               use_kernel: bool = True):
+    """[16] broadband analog aggregation round, batched over leading
+    (trial) dimensions; mirrors ``repro.core.ota.bbfl_round_jax``.
+
+    Both BB-FL variants through the global round index ``t``: odd rounds
+    use (``gamma_odd``, ``mask_odd``), even ones (``gamma_even``,
+    ``mask_even``). Truncated inversion inside the scheduled mask; the PS
+    divides by max(|S_t|, 1) * gamma.
+
+    Returns: (ghat (..., d), chi (..., N)).
+    """
+    odd = t % 2 == 1
+    gamma = float(gamma_odd if odd else gamma_even)
+    mask = torch.as_tensor(np.asarray(mask_odd if odd else mask_even) > 0,
+                           device=habs.device)
+    tau = g_max * gamma / np.sqrt(dim * e_s)
+    chi = ((habs >= tau) & mask).to(grads.dtype)
+    k = chi.sum(-1)
+    acc = gamma * (chi.unsqueeze(-2) @ grads).squeeze(-2)
+    denom = torch.clamp(k, min=1.0) * gamma
+    ghat = ops.ota_combine_with_noise(acc, denom, float(np.sqrt(n0)) * z01,
+                                      use_kernel=use_kernel)
+    return ghat, chi
+
+
+def uniform_gamma_min_variance(lambdas: np.ndarray, dim: int, e_s: float,
+                               g_max: float, n0: float,
+                               n_grid: int = 4096) -> float:
+    """Common pre-scaler minimizing the Lemma-1 variance bound over a grid
+    (statistical CSI only); NumPy copy of the reference's, grid in the same
+    order. LCPC OTA-Comp and both BB-FL schemes use it."""
+    lambdas = np.asarray(lambdas)
+    g_hi = float(np.min(gamma_m_max(lambdas, dim, e_s, g_max)))
+    grid = np.linspace(1e-4 * g_hi, g_hi, n_grid)
+    best, best_v = grid[0], np.inf
+    for gmm in grid:
+        gam = np.full(lambdas.shape, gmm)
+        ex = -(gam ** 2) * g_max ** 2 / (dim * lambdas * e_s)
+        a_m = gam * np.exp(ex)
+        alpha = float(np.sum(a_m))
+        p = a_m / alpha
+        v = float(np.sum(p ** 2 * g_max ** 2 * (gam / a_m - 1.0))
+                  + dim * n0 / alpha ** 2)
+        if v < best_v:
+            best, best_v = gmm, v
+    return float(best)

@@ -18,11 +18,14 @@ shift: CPU PyTorch has no uint32 add or shift. The same code runs on
 Python ints (keys, computed on the host) and on int64 tensors (counters,
 on the tensor's device).
 
-The PS AWGN and the fading stay on NumPy's sequential generators
-(``trial_rng``, ``channel.sample_fading``), exactly as the reference's
-replay mode draws them.
+The PS AWGN, the fading and the selection draws of the digital baselines
+stay on NumPy's sequential generators (``trial_rng``, ``replay_rounds``,
+``channel.sample_fading``), exactly as the reference's replay mode draws
+them.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -111,3 +114,21 @@ def dither_blocks(keys, t: int, n: int, d: int, *,
 def trial_rng(seed: int, trial: int) -> np.random.Generator:
     """The sequential per-trial generator (PS AWGN in replay mode)."""
     return np.random.default_rng((seed, trial, 17))
+
+
+def replay_rounds(seed: int, trial: int, rounds: int,
+                  draw_fn: Callable[[np.random.Generator], np.ndarray]
+                  ) -> np.ndarray:
+    """Replay ``rounds`` per-round draws of the sequential trial generator.
+
+    ``draw_fn(rng)`` consumes exactly what one round of the scheme draws
+    from ``trial_rng(seed, trial)`` (its selection), in order, and returns
+    it as a flat f64 row. Returns the (rounds, S) stack the engine copies
+    to the device once per run.
+    """
+    rng = trial_rng(seed, trial)
+    rows = [np.asarray(draw_fn(rng), dtype=np.float64).ravel()
+            for _ in range(rounds)]
+    if not rows:
+        return np.zeros((0, 1))
+    return np.stack(rows)

@@ -12,15 +12,16 @@ budget, and each eval reports the last live model.
 
 Random streams replay the reference's ``rng="replay"`` mode bit for bit:
 fading from ``channel.sample_fading_batch(lambdas, seed*1000 + trial, T)``,
-PS AWGN from ``trial_rng(seed, trial).standard_normal((T, d))`` (both
-NumPy, made on the host and copied to the device once per run), and
-dither from the counter-based threefry stream ``rngstream.dither_blocks``
-(one (trials, N, d) block per round, made on the device).
+PS AWGN from ``trial_rng(seed, trial).standard_normal((T, d))``, the
+digital baselines' selection draws from the same sequential generator
+through each port's ``sel_stream_np`` (all NumPy, made on the host and
+copied to the device once per run), and dither from the counter-based
+threefry stream ``rngstream.dither_blocks`` (one (trials, N, d) block per
+round, made on the device).
 
-This slice covers sync mode, replay, full batches and four schemes
-(IdealFedAvg, ProposedOTA, VanillaOTA, ProposedDigital); the options it
-does not support raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+This slice covers sync mode, replay, full batches and all 15 Sec. V
+schemes; the options it does not support raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -33,8 +34,12 @@ import torch
 from ..core import baselines as B
 from ..core import rngstream
 from ..core.channel import Deployment, sample_fading_batch
-from ..core.digital import digital_round
-from ..core.ota import ota_round
+from ..core.digital import (alloc_latency, capacity_rate, digital_round,
+                            greedy_bit_alloc, outage_mask, sum_in_order,
+                            topk_mask)
+from ..core.ota import (bbfl_round, opc_ota_comp_eta, opc_ota_fl_round,
+                        ota_round)
+from ..core.quantize import payload_bits
 from ..device import resolve_device
 from ..kernels import ops
 
@@ -57,59 +62,311 @@ class TrainLog:
 @dataclasses.dataclass
 class SchemePort:
     """A scheme in functional form: ``round_fn(grads (K,N,d) f64,
-    habs (K,N), z01 (K,d) or None, u (K,N,d) f32 or None) -> (ghat (K,d),
-    latency)``; latency in channel uses for OTA schemes (divided by the
-    bandwidth by the engine), in seconds for digital ones."""
+    habs (K,N), z01 (K,d) or None, u (K,N,d) f32 or None, sel (K,S) or
+    None, t) -> (ghat (K,d), latency)``; latency in channel uses for OTA
+    schemes (divided by the bandwidth by the engine), in seconds for
+    digital ones. ``t`` is the global round index (BB-FL Alternative's
+    parity)."""
 
     name: str
     is_ota: bool
     round_fn: Callable
     needs_noise: bool = True
     needs_dither: bool = False
+    # (seed, trial, T) -> (T, S) f64 replay of the per-round selection
+    # draws the reference's scheme takes from the sequential trial
+    # generator (``rngstream.replay_rounds``); None when it draws none
+    sel_stream_np: Optional[Callable[[int, int, int], np.ndarray]] = None
+    # (trials, T, S) replayed draws -> the (trials, T, S') rows round_fn
+    # reads as ``sel``, on the host once per run (FedTOE's allocation)
+    sel_plan: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+
+# ------------------------------------------------------- OTA scheme ports
+#
+# Counterparts of ``repro/fl/engine.py:183-310``, batched over trials.
+
+def _ideal_fedavg(agg, use_kernel):
+    return SchemePort(agg.name, True,
+                      lambda g, habs, z01, u, sel, t: (g.mean(-2), 0.0),
+                      needs_noise=False)
+
+
+def _from_ota_params(agg, use_kernel):
+    params = agg.params
+
+    def round_fn(g, habs, z01, u, sel, t):
+        ghat, _ = ota_round(params, g, habs, z01, use_kernel=use_kernel)
+        return ghat, float(params.dim)
+
+    return SchemePort(agg.name, True, round_fn)
+
+
+def _vanilla_ota(agg, use_kernel):
+    root_des = float(np.sqrt(agg.dim * agg.e_s))
+    root_n0 = float(np.sqrt(agg.n0))
+
+    def round_fn(g, habs, z01, u, sel, t):
+        # per-trial gamma_t: the epilogue takes one inv_alpha per row
+        gamma_t = root_des * habs.amin(-1) / agg.g_max
+        acc = gamma_t[:, None] * g.sum(-2)
+        ghat = ops.ota_combine_with_noise(acc, g.shape[-2] * gamma_t,
+                                          root_n0 * z01,
+                                          use_kernel=use_kernel)
+        return ghat, float(agg.dim)
+
+    return SchemePort(agg.name, True, round_fn)
+
+
+def _opc_ota_comp(agg, use_kernel):
+    dim, g_max, e_s, n0 = agg.dim, agg.g_max, agg.e_s, agg.n0
+    b_bar = float(np.sqrt(dim * e_s) / g_max)
+    root_n0 = float(np.sqrt(n0))
+
+    def round_fn(g, habs, z01, u, sel, t):
+        eta = opc_ota_comp_eta(habs, dim=dim, g_max=g_max, e_s=e_s, n0=n0,
+                               n_grid=agg.n_grid)
+        b_t = torch.clamp(torch.sqrt(eta)[..., None] / habs, max=b_bar)
+        acc = ((b_t * habs).unsqueeze(-2) @ g).squeeze(-2)
+        ghat = ops.ota_combine_with_noise(acc, g.shape[-2] * torch.sqrt(eta),
+                                          root_n0 * z01,
+                                          use_kernel=use_kernel)
+        return ghat, float(dim)
+
+    return SchemePort(agg.name, True, round_fn)
+
+
+def _opc_ota_fl(agg, use_kernel):
+    kw = dict(dim=agg.dim, g_max=agg.g_max, e_s=agg.e_s, n0=agg.n0,
+              use_kernel=use_kernel)
+
+    def round_fn(g, habs, z01, u, sel, t):
+        return opc_ota_fl_round(g, habs, z01, **kw)[0], float(agg.dim)
+
+    return SchemePort(agg.name, True, round_fn)
+
+
+def _bbfl_port(agg, use_kernel, odd, even):
+    """BB-FL with the (gamma, mask) policy ``odd`` in odd rounds and
+    ``even`` in even ones."""
+    kw = dict(dim=agg.dim, g_max=agg.g_max, e_s=agg.e_s, n0=agg.n0,
+              gamma_odd=odd[0], mask_odd=odd[1], gamma_even=even[0],
+              mask_even=even[1], use_kernel=use_kernel)
+
+    def round_fn(g, habs, z01, u, sel, t):
+        return bbfl_round(g, habs, z01, t, **kw)[0], float(agg.dim)
+
+    return SchemePort(agg.name, True, round_fn)
+
+
+def _bbfl_interior(agg, use_kernel):
+    policy = (agg.gamma, agg.interior)
+    return _bbfl_port(agg, use_kernel, policy, policy)
+
+
+def _bbfl_alternative(agg, use_kernel):
+    inner = agg.interior_agg
+    return _bbfl_port(agg, use_kernel, (inner.gamma, inner.interior),
+                      (agg.gamma_all, agg.all_mask))
+
+
+# --------------------------------------------------- digital scheme ports
+
+def _proposed_digital(agg, use_kernel):
+    params = agg.params
+
+    def round_fn(g, habs, z01, u, sel, t):
+        ghat, _, latency = digital_round(params, g, habs, u,
+                                         use_kernel=use_kernel)
+        return ghat, latency
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True)
+
+
+def _quantized_mean(grads, chi, bits, u, k, use_kernel, r_max):
+    """sum_{m in sel} dequant(quant(g_m, r_m)) / k (``repro/fl/engine.py:
+    312-321``): k a number or one per trial. The levels 2^r - 1 are made
+    with an integer shift, so they are exact integers (the reference's
+    ``jnp.exp2`` is not, ROADMAP Queue 3). The route follows the payload
+    (``ops.fused_route``), so the plain run takes the kernel run's."""
+    one = torch.ones_like(bits, dtype=torch.int64)
+    levels = chi * ((one << bits.to(torch.int64)) - 1).to(grads.dtype)
+    weights = chi / (k[..., None] if torch.is_tensor(k) else k)
+    return ops.quantized_weighted_sum(
+        grads, levels, u, weights, r_max=r_max, use_kernel=use_kernel,
+        fused=ops.fused_route(r_max, grads.shape[-1]))
+
+
+def _capacity_latency(chi, payload, habs, agg):
+    """sum_m chi_m L_m / (B max(R_m, 1e-9)) over the capacity rates R_m,
+    devices added in index order."""
+    rate = capacity_rate(habs, agg.e_s, agg.n0)
+    return sum_in_order(chi * payload
+                        / (agg.B * torch.clamp(rate, min=1e-9)))
+
+
+def _best_channel(agg, use_kernel):
+    k, r = agg.k, agg.r
+    payload = float(payload_bits(agg.dim, r))
+
+    def round_fn(g, habs, z01, u, sel, t):
+        chi = topk_mask(habs, k).to(g.dtype)
+        lat = _capacity_latency(chi, payload, habs, agg)
+        return _quantized_mean(g, chi, chi * r, u, k, use_kernel, r), lat
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True)
+
+
+def _prop_fairness(agg, use_kernel):
+    k, r = agg.k, agg.r
+    lambdas = np.asarray(agg.dep.lambdas)
+    payload = float(payload_bits(agg.dim, r))
+
+    def round_fn(g, habs, z01, u, sel, t):
+        lam = torch.as_tensor(lambdas, device=habs.device)
+        chi = topk_mask(habs * habs / lam, k).to(g.dtype)
+        lat = _capacity_latency(chi, payload, habs, agg)
+        return _quantized_mean(g, chi, chi * r, u, k, use_kernel, r), lat
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True)
+
+
+def _best_channel_norm(agg, use_kernel):
+    k, kp, r_total = agg.k, agg.kp, agg.r_total
+
+    def round_fn(g, habs, z01, u, sel, t):
+        cand = topk_mask(habs, kp)
+        # per-device scores through the row-statistics kernel
+        _, sumsq = ops.row_maxabs_sumsq(g, use_kernel=use_kernel)
+        norms = torch.sqrt(sumsq)
+        chi = topk_mask(torch.where(cand > 0, norms, -torch.inf),
+                        k).to(g.dtype)
+        share = (chi * norms) / torch.clamp(sum_in_order(chi * norms),
+                                            min=1e-12)[..., None]
+        bits = chi * torch.clamp(torch.round(r_total * share), min=1.0)
+        lat = _capacity_latency(chi, 64.0 + agg.dim * bits, habs, agg)
+        acc = _quantized_mean(g, chi, bits, u, k, use_kernel, r_total)
+        return acc, lat
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True)
+
+
+def _choice_stream(agg):
+    """Replay of ``rng.choice(N, size=K, replace=False)`` once a round."""
+    n, k = agg.dep.n_devices, agg.k
+
+    def sel_stream(seed, trial, T):
+        return rngstream.replay_rounds(
+            seed, trial, T, lambda rng: rng.choice(n, size=k, replace=False))
+
+    return sel_stream
+
+
+def _uqos(agg, use_kernel):
+    k, r, rate_c = agg.k, agg.r, agg.rate
+    pi = np.asarray(agg.pi)
+    n = pi.shape[0]
+    # unbiased reweighting 1 / (n pi p_succ), made on the host as the
+    # reference's NumPy constants are
+    inv_w = n * pi * np.asarray(agg.p_succ)
+    payload = float(payload_bits(agg.dim, r))
+
+    def sel_stream(seed, trial, T):
+        # per round: sampling permutation + inclusion keys, in draw order
+        def draw(rng):
+            return np.concatenate([rng.permutation(n).astype(np.float64),
+                                   rng.uniform(size=n)])
+        return rngstream.replay_rounds(seed, trial, T, draw)
+
+    def round_fn(g, habs, z01, u, sel, t):
+        pi_t = torch.as_tensor(pi, device=g.device)
+        order = sel[..., :n].to(torch.int64)
+        keys = sel[..., n:] ** (1.0 / pi_t[order])
+        top = torch.argsort(keys, dim=-1, stable=True).flip(-1)[..., :k]
+        chosen = order.gather(-1, top)
+        cmask = torch.zeros_like(habs).scatter(-1, chosen, 1.0)
+        snr_ok = capacity_rate(habs, agg.e_s, agg.n0) >= rate_c
+        active = (cmask * snr_ok).to(g.dtype)
+        levels = active * (2.0 ** r - 1.0)
+        acc = ops.quantized_weighted_sum(
+            g, levels, u, active / torch.as_tensor(inv_w, device=g.device),
+            r_max=r, use_kernel=use_kernel,
+            fused=ops.fused_route(r, g.shape[-1]))
+        lat = active.sum(-1) * payload / (agg.B * rate_c)
+        return acc, lat
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True, sel_stream_np=sel_stream)
+
+
+def _qml(agg, use_kernel):
+    k, r = agg.k, agg.r
+    payload = float(payload_bits(agg.dim, r))
+
+    def round_fn(g, habs, z01, u, sel, t):
+        chi = torch.zeros_like(habs).scatter(-1, sel.to(torch.int64), 1.0)
+        chi = chi.to(g.dtype)
+        lat = _capacity_latency(chi, payload, habs, agg)
+        return _quantized_mean(g, chi, chi * r, u, k, use_kernel, r), lat
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True, sel_stream_np=_choice_stream(agg))
+
+
+def _fedtoe(agg, use_kernel):
+    dim, bw, r_max = agg.dim, agg.B, agg.r_max
+    rates = np.asarray(agg.rates)
+    n = rates.shape[0]
+
+    def sel_plan(sel):
+        """(trials, T, k) draws -> (trials, T, 2N + 1) rows: the greedy
+        allocation's bits and mask, and the round's TDMA latency."""
+        out = np.zeros(sel.shape[:2] + (2 * n + 1,))
+        for idx in np.ndindex(*sel.shape[:2]):
+            bits, in_alloc = greedy_bit_alloc(
+                sel[idx].astype(np.int64), rates, dim=dim, bandwidth_hz=bw,
+                t_budget_s=agg.t_budget, r_max=r_max)
+            lat = alloc_latency(bits, in_alloc, rates, dim=dim,
+                                bandwidth_hz=bw)
+            out[idx] = np.concatenate([bits, in_alloc, [lat]])
+        return out
+
+    def round_fn(g, habs, z01, u, sel, t):
+        bits, in_alloc = sel[..., :n], sel[..., n:2 * n]
+        chi = (in_alloc * outage_mask(habs, agg.thr)).to(g.dtype)
+        k_sched = torch.clamp(in_alloc.sum(-1), min=1.0)
+        acc = _quantized_mean(g, chi, chi * bits, u,
+                              k_sched * (1.0 - agg.p_out), use_kernel, r_max)
+        return acc, sel[..., 2 * n]
+
+    return SchemePort(agg.name, False, round_fn, needs_noise=False,
+                      needs_dither=True, sel_stream_np=_choice_stream(agg),
+                      sel_plan=sel_plan)
+
+
+#: scheme type -> port factory ``(agg, use_kernel) -> SchemePort``
+_PORTS = {
+    B.IdealFedAvg: _ideal_fedavg, B.ProposedOTA: _from_ota_params,
+    B.LCPCOTAComp: _from_ota_params, B.VanillaOTA: _vanilla_ota,
+    B.OPCOTAComp: _opc_ota_comp, B.OPCOTAFL: _opc_ota_fl,
+    B.BBFLInterior: _bbfl_interior, B.BBFLAlternative: _bbfl_alternative,
+    B.ProposedDigital: _proposed_digital, B.BestChannel: _best_channel,
+    B.BestChannelNorm: _best_channel_norm, B.PropFairness: _prop_fairness,
+    B.UQOS: _uqos, B.QML: _qml, B.FedTOE: _fedtoe,
+}
 
 
 def scheme_port(agg, use_kernel: bool = True) -> SchemePort:
-    """The engine's round function for a ``core.baselines`` scheme
-    (counterparts of ``repro/fl/engine.py:183-310``)."""
-    if isinstance(agg, B.IdealFedAvg):
-        return SchemePort(agg.name, True,
-                          lambda g, habs, z01, u: (g.mean(-2), 0.0),
-                          needs_noise=False)
-    if isinstance(agg, B.ProposedOTA):
-        params = agg.params
-
-        def ota_fn(g, habs, z01, u):
-            ghat, _ = ota_round(params, g, habs, z01, use_kernel=use_kernel)
-            return ghat, float(params.dim)
-
-        return SchemePort(agg.name, True, ota_fn)
-    if isinstance(agg, B.VanillaOTA):
-        root_des = float(np.sqrt(agg.dim * agg.e_s))
-        root_n0 = float(np.sqrt(agg.n0))
-
-        def vanilla_fn(g, habs, z01, u):
-            # per-trial gamma_t: the epilogue takes one inv_alpha per row
-            gamma_t = root_des * habs.amin(-1) / agg.g_max
-            acc = gamma_t[:, None] * g.sum(-2)
-            ghat = ops.ota_combine_with_noise(acc, g.shape[-2] * gamma_t,
-                                              root_n0 * z01,
-                                              use_kernel=use_kernel)
-            return ghat, float(agg.dim)
-
-        return SchemePort(agg.name, True, vanilla_fn)
-    if isinstance(agg, B.ProposedDigital):
-        params = agg.params
-
-        def digital_fn(g, habs, z01, u):
-            ghat, _, latency = digital_round(params, g, habs, u,
-                                             use_kernel=use_kernel)
-            return ghat, latency
-
-        return SchemePort(agg.name, False, digital_fn, needs_noise=False,
-                          needs_dither=True)
-    raise NotImplementedError(
-        f"no port of scheme {type(agg).__name__} yet: the remaining Sec. V "
-        "baselines arrive with ROADMAP Queue 1 item 6")
+    """The engine's round function for a ``core.baselines`` scheme."""
+    factory = _PORTS.get(type(agg))
+    if factory is None:
+        raise TypeError(f"{type(agg).__name__} is not a scheme of "
+                        "repro_torch.core.baselines")
+    return factory(agg, use_kernel)
 
 
 def _project(w: torch.Tensor, radius: float) -> torch.Tensor:
@@ -196,6 +453,13 @@ class FLEngine:
             Z = torch.as_tensor(np.stack(
                 [rngstream.trial_rng(seed, tr).standard_normal((T, d))
                  for tr in range(trials)]), device=dev)       # (trials, T, d)
+        SEL = None
+        if port.sel_stream_np is not None:
+            sel = np.stack([port.sel_stream_np(seed, tr, T)
+                            for tr in range(trials)])         # (trials, T, S)
+            if port.sel_plan is not None:
+                sel = port.sel_plan(sel)
+            SEL = torch.as_tensor(sel, device=dev)
         dkeys = [rngstream.dither_base_key(seed, tr) for tr in range(trials)]
         radius = (np.inf if self.project_radius is None
                   else float(self.project_radius))
@@ -216,7 +480,8 @@ class FLEngine:
             u = (rngstream.dither_blocks(dkeys, t, N, d, device=dev)
                  if port.needs_dither else None)
             ghat, lat = port.round_fn(g, habs[:, t],
-                                      None if Z is None else Z[:, t], u)
+                                      None if Z is None else Z[:, t], u,
+                                      None if SEL is None else SEL[:, t], t)
             w = torch.where(active[:, None], _project(w - self.eta * ghat,
                                                       radius), w)
             # division (not a reciprocal multiply), as the reference

@@ -55,19 +55,62 @@ def dataset(ref) -> FLDataset:
         np.asarray(ref.x_test), np.asarray(ref.y_test))
 
 
+def _restore(cls, **attrs):
+    """A port scheme with the given attributes, for schemes whose
+    constructor needs a deployment the reference object does not keep."""
+    obj = cls.__new__(cls)
+    obj.__dict__.update(attrs)
+    return obj
+
+
+def _ota_consts(ref) -> tuple:
+    return ref.dim, ref.g_max, ref.e_s, ref.n0
+
+
+def _bbfl_interior(ref):
+    return _restore(B.BBFLInterior, interior=np.asarray(ref.interior),
+                    gamma=float(ref.gamma), dim=ref.dim, g_max=ref.g_max,
+                    e_s=ref.e_s, n0=ref.n0)
+
+
 def scheme(ref):
-    """A reference ``core.baselines`` scheme of this slice -> the port's."""
+    """A reference ``core.baselines`` scheme -> the port's, by reading its
+    attributes (all 15 Sec. V schemes). Digital baselines rebuild from
+    their deployment with the port's constructors, which the tests hold
+    bit-equal to the reference's."""
     kind = type(ref).__name__
     if kind == "IdealFedAvg":
         return B.IdealFedAvg()
-    if kind == "ProposedOTA":
-        return B.ProposedOTA(ota_params(ref.params), label=ref.name)
-    if kind == "VanillaOTA":
-        return B.VanillaOTA(ref.dim, ref.g_max, ref.e_s, ref.n0)
-    if kind == "ProposedDigital":
-        return B.ProposedDigital(digital_params(ref.params), label=ref.name)
-    raise NotImplementedError(
-        f"no port of scheme {kind} yet (ROADMAP Queue 1 item 6)")
+    if kind in ("ProposedOTA", "ProposedDigital"):
+        params = (ota_params(ref.params) if kind == "ProposedOTA"
+                  else digital_params(ref.params))
+        return getattr(B, kind)(params, label=ref.name)
+    if kind in ("VanillaOTA", "OPCOTAFL"):
+        return getattr(B, kind)(*_ota_consts(ref))
+    if kind == "OPCOTAComp":
+        return B.OPCOTAComp(*_ota_consts(ref), n_grid=ref.n_grid)
+    if kind == "LCPCOTAComp":
+        return _restore(B.LCPCOTAComp, params=ota_params(ref.params))
+    if kind == "BBFLInterior":
+        return _bbfl_interior(ref)
+    if kind == "BBFLAlternative":
+        return _restore(B.BBFLAlternative,
+                        interior_agg=_bbfl_interior(ref.interior_agg),
+                        all_mask=np.asarray(ref.all_mask),
+                        gamma_all=float(ref.gamma_all), dim=ref.dim,
+                        g_max=ref.g_max, e_s=ref.e_s, n0=ref.n0)
+    digital = {
+        "BestChannel": ("k", "r_bits"), "PropFairness": ("k", "r_bits"),
+        "BestChannelNorm": ("k", "k_prime", "r_total"),
+        "UQOS": ("k", "r_bits", "rate"), "QML": ("k", "var_cap", "r_max"),
+        "FedTOE": ("k", "p_out", "t_budget_s", "r_max")}
+    if kind in digital:
+        # constructor keyword -> the attribute the reference keeps it in
+        attr = {"r_bits": "r", "k_prime": "kp", "t_budget_s": "t_budget"}
+        kw = {a: getattr(ref, attr.get(a, a)) for a in digital[kind]}
+        return getattr(B, kind)(deployment(ref.dep), ref.dim, ref.g_max,
+                                ref.e_s, ref.n0, ref.B, **kw)
+    raise TypeError(f"{kind} is not a scheme of repro.core.baselines")
 
 
 def load_weights(task, w) -> None:

@@ -6,6 +6,8 @@ versions and their callers:
   payload         — the digital wire format at gradient scale: quantize and
                     bit-pack, unpack and dequantize, and the packed
                     weighted sum in device order
+  row_reduce      — per-row (max |g|, sum g^2) in a wider accumulator, the
+                    device scores of the norm-based digital baselines
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the sources
 build with nvcc at first use (``build.py``).
@@ -15,9 +17,10 @@ from .dithered_quant import dithered_quantize_rows
 from .ota_combine import ota_combine
 from .payload import (packed_weighted_sum, quantize_pack_rows,
                       unpack_dequant_rows)
+from .row_reduce import row_maxabs_sumsq
 
 KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
-           unpack_dequant_rows, packed_weighted_sum)
+           unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq)
 
 
 def launch_counts() -> dict:

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from . import payload, ref
+from . import payload, ref, row_reduce
 from .dithered_quant import dithered_quantize_rows
 from .ota_combine import ota_combine
 from .payload import CODE_BITS_CHOICES
@@ -64,6 +64,23 @@ def ota_combine_with_noise(g: torch.Tensor, alpha, noise: torch.Tensor,
     else:
         out = ref.ota_combine_ref(g2, inv_alpha, z)
     return out.reshape(g.shape)
+
+
+def row_maxabs_sumsq(gs: torch.Tensor, *, use_kernel: bool = True,
+                     acc_dtype=None):
+    """Per-device gradient statistics in one pass (one launch for every
+    leading index): gs (..., N, d) -> (maxabs (..., N), sumsq (..., N)),
+    ``||g||_inf`` and ``sum g^2`` in ``acc_dtype`` (default gs's dtype;
+    bf16 payloads take f32). The sum's order is the kernel's (see
+    ``ref.row_maxabs_sumsq_ref``), so ``use_kernel=False`` gives the same
+    bits.
+    """
+    acc_dtype = gs.dtype if acc_dtype is None else acc_dtype
+    g2 = gs.reshape(-1, gs.shape[-1])
+    out = (row_reduce.row_maxabs_sumsq(g2.contiguous(), acc_dtype)
+           if use_kernel else ref.row_maxabs_sumsq_ref(g2, acc_dtype))
+    return (out[:, 0].reshape(gs.shape[:-1]),
+            out[:, 1].reshape(gs.shape[:-1]))
 
 
 def dithered_quantize_batch(gs: torch.Tensor, levels: torch.Tensor,

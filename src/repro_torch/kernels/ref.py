@@ -152,3 +152,33 @@ def quantized_weighted_sum_ref(g: torch.Tensor, u: torch.Tensor,
                                         scal[:, i, 1])
         acc = acc + scal[:, i, 2:3] * gq
     return acc
+
+
+# ------------------------------------------------- per-row statistics
+
+#: Threads of the row reduction's block: the stride of each thread's walk
+#: and the width of the halving tree (``csrc/row_reduce.cu``).
+REDUCE_THREADS = 256
+
+
+def row_maxabs_sumsq_ref(g: torch.Tensor, acc_dtype) -> torch.Tensor:
+    """Per-row (max |g_r|, sum g_r^2) in ``acc_dtype``, in the kernel's
+    order: thread j of a row adds entries j, j + 256, ... in turn from 0,
+    then a halving tree (128, 64, ..., 1) adds the 256 partial sums.
+
+    g: (R, d), d >= 1. Zero padding to a multiple of 256 adds exact zeros.
+    Returns (R, 2): columns (maxabs, sumsq).
+    """
+    R, d = g.shape
+    t = REDUCE_THREADS
+    x = torch.nn.functional.pad(g.to(acc_dtype), (0, -d % t))
+    x = x.reshape(R, -1, t)
+    sq = x * x
+    acc = torch.zeros(R, t, dtype=acc_dtype, device=g.device)
+    for k in range(sq.shape[1]):
+        acc = acc + sq[:, k]
+    s = t // 2
+    while s:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return torch.stack([x.abs().amax(dim=(1, 2)), acc[:, 0]], dim=1)

@@ -100,7 +100,7 @@ def test_vanilla_ota_round_matches_reference_engine(ref, case):
                                      cfg.energy_per_symbol, cfg.noise_power)
     port = scheme_port(interop.scheme(agg_r))
     g, habs, z01, u = _port_inputs(case)
-    ghat, lat = port.round_fn(g, habs, z01, u)
+    ghat, lat = port.round_fn(g, habs, z01, u, None, 3)
     jnp = ref.jax.numpy
     with ref.jax.enable_x64():
         fn = ref.engine.as_functional(agg_r, use_kernel=True).round_fn
@@ -116,7 +116,8 @@ def test_vanilla_ota_round_matches_reference_engine(ref, case):
 
 def test_ideal_fedavg_round_is_the_mean(case):
     g, habs, z01, u = _port_inputs(case)
-    ghat, lat = scheme_port(B.IdealFedAvg()).round_fn(g, habs, None, u)
+    ghat, lat = scheme_port(B.IdealFedAvg()).round_fn(g, habs, None, u,
+                                                      None, 3)
     _assert_rel(ghat.numpy(), case["grads"].mean(axis=1))
     assert lat == 0.0
 
