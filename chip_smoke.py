@@ -7,10 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device — the card's name and count, and nvidia-smi's name and power
    limit line;
-2. build — nvcc builds the four sources of
+2. build — nvcc builds the five sources of
    ``src/repro_torch/kernels/csrc`` (one process per source, all started
    together), with ptxas' register report;
-3. kernels — each of the six kernels against its plain PyTorch version
+3. kernels — each of the seven kernels against its plain PyTorch version
    on the card, bit-equal, at the main path's shapes and at large ones,
    with degenerate and ragged rows; the payload decoder ``unpack(pack(g))``
    also bit-equal to the two-step quantizer kernel on the same inputs;
@@ -41,8 +41,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the CPU's to the bit; every scheme at a small size, and the proposed
    ones at Fig. 3 width, must agree with the port's CPU run (which the
    tests tie to the JAX reference);
-5. the kernel table, nvidia-smi's line, and the result line.
+5. serve — falcon-mamba-7b (``repro_torch.launch.serve.serve``, the
+   selective scan on its CUDA kernel), random weights from a seed:
+     at 2 layers of the full width, 4 prompts of 512 tokens and 32
+     decoded tokens with the kernel and again with its plain version fed
+     the same tokens: prefill and decode logits bit-equal;
+     at the ``scaled_down()`` sizes (f32) on the card against the CPU run
+     (which the tests tie to the JAX reference), within the tests' 1e-4;
+     at full width and full depth (64 layers, d_model 4096, d_inner 8192,
+     n 16, vocab 65,024, 7,272,665,088 bf16 parameters), 4 x 512 prompt
+     tokens and 32 decoded tokens: exactly 64 scan launches in the
+     prefill and none in decode, finite logits; prefill and decode
+     tokens/s and the peak memory;
+6. the kernel table, nvidia-smi's line, and the result line.
 """
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -306,6 +320,47 @@ def reduce_case(rows, d, gdt, seed):
                 plain_ms=plain_ms, library_ms=lib_ms,
                 library="torch.linalg.vector_norm (the sum half only)",
                 bound_ms=b_ms, bound_by=b_by)
+
+
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+
+
+def scan_case(B, S, D, n, seed):
+    """The selective scan against its plain version on the reference
+    test's distributions (``tests/test_kernels.py``): bit-equal y and
+    h_last."""
+    import torch
+    from repro_torch.kernels import ref, selective_scan
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=gen, device="cuda")
+    dt = torch.rand(B, S, D, **kw) * 0.199 + 0.001
+    x = torch.randn(B, S, D, **kw)
+    bm = torch.randn(B, S, n, **kw) * 0.5
+    cm = torch.randn(B, S, n, **kw) * 0.5
+    a_w = -torch.exp(torch.randn(D, n, **kw) * 0.3)
+    h0 = torch.randn(B, D, n, **kw) * 0.1
+    ins = (dt, x, bm, cm, a_w, h0)
+    y, h = selective_scan(*ins)
+    y_p, h_p = ref.selective_scan_ref(*ins)
+    torch.cuda.synchronize()
+    tag = f"({B}, {S}, {D}, {n})"
+    check(y.shape == (B, S, D) and h.shape == (B, D, n)
+          and bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+          f"selective_scan output at {tag}")
+    err = max(float((y - y_p).abs().max()), float((h - h_p).abs().max()))
+    check(torch.equal(y, y_p) and torch.equal(h, h_p),
+          f"selective_scan != plain at {tag}: max err {err}")
+    # each input read once, y and h_last written once; per (b, t, d, j)
+    # one exp (counted as one operation) and 7 multiplies and adds
+    nbytes = 4 * (3 * B * S * D + 2 * B * S * n + D * n + 2 * B * D * n)
+    big = nbytes > 64e6
+    ms = device_ms(lambda: selective_scan(*ins), 5 if big else 20)
+    plain_ms = device_ms(lambda: ref.selective_scan_ref(*ins), 2 if big else 5,
+                         reps=3)
+    b_ms, b_by = bound(nbytes, 8 * B * S * D * n, "float32")
+    return dict(shape=[B, S, D, n], dtype="float32", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # --------------------------------------------------------------- main path
@@ -588,6 +643,138 @@ def fig3_matches_cpu():
              wall_time_equal=True)
 
 
+MAMBA = "falcon-mamba-7b"
+FULL_PARAMS = 7_272_665_088
+
+
+def free_card():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_kernel_vs_plain():
+    """falcon-mamba at full width cut to 2 layers: the serve loop with the
+    scan kernel, then with its plain version fed the same tokens; prefill
+    and decode logits must be bit-equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS, serve
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_config(MAMBA), n_layers=2)
+    model = make_model(cfg, seed=0)
+    run = dict(batch=4, prompt_len=512, tokens=32, keep_logits=True)
+    kern = serve(model, **run)
+    plain = serve(model, flags={**SERVE_FLAGS, "use_kernel": False},
+                  feed=kern.generated, **run)
+    check(kern.prefill_launches["selective_scan"] == 2
+          and kern.decode_launches["selective_scan"] == 0
+          and plain.prefill_launches["selective_scan"] == 0,
+          f"2-layer serve launches: kernel {kern.prefill_launches}, "
+          f"plain {plain.prefill_launches}")
+    check(bool(torch.isfinite(kern.prefill_logits).all())
+          and bool(torch.isfinite(kern.decode_logits).all()),
+          "2-layer serve logits not finite")
+    diff = max(float((kern.prefill_logits.float()
+                      - plain.prefill_logits.float()).abs().max()),
+               float((kern.decode_logits.float()
+                      - plain.decode_logits.float()).abs().max()))
+    check(torch.equal(kern.prefill_logits, plain.prefill_logits)
+          and torch.equal(kern.decode_logits, plain.decode_logits),
+          f"2-layer serve: kernel and plain logits differ by {diff}")
+    emit(phase="serve_kernel_vs_plain", arch=MAMBA, n_layers=2,
+         batch=4, prompt_len=512, tokens=32, dtype="bfloat16",
+         bit_equal=True, max_abs_diff=diff,
+         prefill_s_kernel=kern.prefill_s, prefill_s_plain=plain.prefill_s)
+    del model, kern, plain
+    free_card()
+
+
+def serve_small_vs_cpu():
+    """falcon-mamba at its ``scaled_down()`` sizes (f32) served on the
+    card against the port's CPU run with the same weights, prompts and
+    decode tokens: logits within the tests' 1e-4 (relative to the largest
+    magnitude, plus 1e-4 relative)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    small = get_config(MAMBA).scaled_down()
+    cpu_m = make_model(small, seed=0, device="cpu")
+    card_m = make_model(small, seed=None)
+    card_m.load_state_dict(cpu_m.state_dict())
+    run = dict(batch=4, prompt_len=64, tokens=8, keep_logits=True)
+    cpu = serve(cpu_m, **run)
+    card = serve(card_m, feed=cpu.generated, **run)
+    check(card.prefill_launches["selective_scan"] == small.n_layers,
+          f"scaled-down serve launches {card.prefill_launches}")
+    worst = 0.0
+    for got, want in ((card.prefill_logits, cpu.prefill_logits),
+                      (card.decode_logits, cpu.decode_logits)):
+        got = got.cpu().double()
+        want = want.double()
+        scale = float(want.abs().max())
+        gap = (got - want).abs()
+        worst = max(worst, float(gap.max()) / scale)
+        check(bool((gap <= 1e-4 * want.abs() + 1e-4 * scale).all()),
+              f"scaled-down serve: card vs CPU logits differ by "
+              f"{float(gap.max())} (largest logit {scale})")
+    emit(phase="serve_small_vs_cpu", arch=small.name, max_rel_diff=worst,
+         limit=1e-4, batch=4, prompt_len=64, tokens=8)
+    del card_m, card
+    free_card()
+
+
+def serve_full():
+    """The slice's main path: falcon-mamba-7b at full width and depth,
+    4 requests of 512 prompt tokens and 32 decoded tokens, after a
+    2-token warm-up; counts read around the measured run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model, param_count
+    cfg = get_config(MAMBA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == FULL_PARAMS and model.embed.dtype == torch.bfloat16,
+          f"falcon-mamba-7b has {n_params} parameters")
+    run = dict(batch=4, prompt_len=512)
+    serve(model, tokens=2, **run)                          # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = serve(model, tokens=32, keep_logits=True, **run)
+    counts = kernels.launch_counts()
+    check(out.prefill_launches["selective_scan"] == cfg.n_layers
+          and out.decode_launches["selective_scan"] == 0
+          and counts["selective_scan"] == cfg.n_layers
+          and sum(counts.values()) == cfg.n_layers,
+          f"full serve launches: prefill {out.prefill_launches}, decode "
+          f"{out.decode_launches}")
+    check(out.generated.shape == (4, 33)
+          and bool(((out.generated >= 0)
+                    & (out.generated < cfg.vocab_size)).all())
+          and bool(torch.isfinite(out.prefill_logits).all())
+          and bool(torch.isfinite(out.decode_logits).all()),
+          "full serve: logits not finite or tokens out of range")
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase="main_path", run="falcon-mamba-7b serve", arch=MAMBA,
+         n_layers=cfg.n_layers, params=n_params, dtype="bfloat16",
+         launches=counts, batch=4, prompt_len=512, tokens=32,
+         init_s=init_s, prefill_s=out.prefill_s, decode_s=out.decode_s,
+         prefill_tokens_per_s=out.prefill_tokens_per_s,
+         decode_tokens_per_s=out.decode_tokens_per_s,
+         peak_memory_gb=peak / 1e9,
+         first_tokens=out.generated[0, :8].tolist())
+    del model, out
+    free_card()
+    return counts
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -622,7 +809,8 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          kernels=["ota_combine", "dithered_quantize_rows",
                   "quantize_pack_rows", "unpack_dequant_rows",
-                  "packed_weighted_sum", "row_maxabs_sumsq"])
+                  "packed_weighted_sum", "row_maxabs_sumsq",
+                  "selective_scan"])
 
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
@@ -664,6 +852,18 @@ def main() -> int:
         emit(phase="kernel", kernel="row_maxabs_sumsq", **r)
         reduce_rows[(rows, d, dt)] = r
 
+    # the selective scan: falcon-mamba's prefill (4 x 512 tokens, d_inner
+    # 8192, n 16), the reference test's shapes, ragged S and D, n 4/8/16,
+    # and one step
+    scan_rows = {}
+    for shape in ((4, 512, 8192, 16), (1, 128, 128, 8), (2, 300, 200, 16),
+                  (2, 64, 100, 4), (1, 37, 129, 16), (2, 300, 129, 8),
+                  (1, 1, 8192, 16)):
+        r = scan_case(*shape, seed=sum(shape))
+        emit(phase="kernel", kernel="selective_scan", **r)
+        scan_rows[shape] = r
+    free_card()
+
     # 4. the main paths: Fig. 2 and Fig. 3 at full width
     launches = {}
 
@@ -673,7 +873,8 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     none = {"quantize_pack_rows": 0, "packed_weighted_sum": 0,
-            "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0}
+            "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0,
+            "selective_scan": 0}
     task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
@@ -749,11 +950,21 @@ def main() -> int:
     dither_matches_cpu(4, 10, 147994, (0, 39))
     small_matches_cpu()
     fig3_matches_cpu()
+    free_card()
 
-    # 5. the kernel table at the main path's shapes and types (launches:
+    # 5. serve falcon-mamba-7b: the kernel against its plain version at 2
+    # layers, the card against the CPU at the reduced sizes, then the main
+    # path at full width and depth
+    serve_kernel_vs_plain()
+    serve_small_vs_cpu()
+    for k, v in serve_full().items():
+        launches[k] = launches.get(k, 0) + v
+
+    # 6. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
-    # Channel-Norm's (4 trials x 10 devices, 7850) f64)
+    # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at
+    # falcon-mamba-7b's prefill)
     main = (40, 147994, f64, 8)
     table = []
     for kname, source, replaces, rows, row in (
@@ -779,7 +990,10 @@ def main() -> int:
             ("row_maxabs_sumsq",
              "src/repro_torch/kernels/csrc/row_reduce.cu",
              "src/repro/kernels/row_reduce.py:50", reduce_rows,
-             reduce_rows[(40, 7850, f64)])):
+             reduce_rows[(40, 7850, f64)]),
+            ("selective_scan", SCAN_SOURCE,
+             "src/repro/kernels/selective_scan.py:77", scan_rows,
+             scan_rows[(4, 512, 8192, 16)])):
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname],

@@ -17,8 +17,14 @@ fading/noise set-up and final eval included), device time per round
 idle share, kernel launches per round, and device time per round by
 kernel family (gradient GEMMs, the threefry dither's int64 bitwise and
 shift ops, each of the port's CUDA kernels, the copy of the host-made PS
-noise to the card, the rest). Needs a card;
-exits non-zero without one.
+noise to the card, the rest).
+
+The serve cell (``--cells serve``) builds falcon-mamba-7b at full width
+and depth (random bf16 weights) and profiles one prefill of 4 x 512
+prompt tokens and then 32 greedy decode steps of the 4 requests, each on
+its own, through the serve steps with the scan on its CUDA kernel: wall
+time, device time by family, idle share and launches per token. Needs a
+card; exits non-zero without one.
 """
 import argparse
 import json
@@ -29,13 +35,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (                      # first match wins, on the kernel's name
+    ("selective_scan", ("selective_scan",)),
     ("ota_combine", ("ota_combine",)),
     ("dithered_quantize_rows", ("dithered_quantize",)),
     ("quantize_pack_rows", ("quantize_pack",)),
     ("packed_weighted_sum", ("packed_weighted_sum",)),
     ("unpack_dequant_rows", ("unpack_dequant",)),
     ("row_maxabs_sumsq", ("row_maxabs",)),
-    ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_kernel")),
+    ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_kernel",
+              "nvjet")),
     ("bitwise/shift (threefry)", ("bitwise", "shift")),
     ("memcpy host to card", ("memcpy htod",)),
     ("softmax", ("softmax",)),
@@ -52,15 +60,17 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_cell(trainer, agg, rounds, **run):
+def profiled(fn, kernels=None):
+    """Run ``fn()`` under the profiler; (device time by family in us,
+    launches, busy us, host wall seconds to a synchronise). A dict passed
+    as ``kernels`` receives each kernel's (device us, launches) by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    trainer.run(agg, rounds=2, eval_every=1, **run)          # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run(agg, rounds=rounds, eval_every=rounds, **run)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_family, launches, busy_us = {}, 0, 0.0
@@ -72,10 +82,22 @@ def profile_cell(trainer, agg, rounds, **run):
             continue
         fam = family(evt.key)
         by_family[fam] = by_family.get(fam, 0.0) + dev_us
+        if kernels is not None:
+            us, n = kernels.get(evt.key, (0.0, 0))
+            kernels[evt.key] = (us + dev_us, n + evt.count)
         launches += evt.count
         busy_us += dev_us
     if busy_us == 0:
         raise SystemExit("profiler recorded no device time")
+    return by_family, launches, busy_us, wall
+
+
+def profile_cell(trainer, agg, rounds, **run):
+    import torch
+    trainer.run(agg, rounds=2, eval_every=1, **run)          # warm-up
+    torch.cuda.synchronize()
+    by_family, launches, busy_us, wall = profiled(
+        lambda: trainer.run(agg, rounds=rounds, eval_every=rounds, **run))
     return dict(
         wall_ms_per_round=wall * 1e3 / rounds,
         device_ms_per_round=busy_us / 1e3 / rounds,
@@ -86,9 +108,63 @@ def profile_cell(trainer, agg, rounds, **run):
                 by_family.items(), key=lambda kv: -kv[1])})
 
 
+def profile_serve(batch=4, prompt_len=512, tokens=32):
+    """falcon-mamba-7b's prefill and decode, each profiled on its own."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import make_batch, make_model
+    cfg = get_config("falcon-mamba-7b")
+    model = make_model(cfg, seed=0)
+    cache_len = prompt_len + tokens + 1
+    prefill = make_prefill_step(model, batch=batch, seq=prompt_len,
+                                cache_len=cache_len, flags=SERVE_FLAGS)
+    decode = make_decode_step(model, batch=batch, cache_len=cache_len,
+                              flags=SERVE_FLAGS)
+    inputs = {"tokens": make_batch(cfg, batch, prompt_len,
+                                   torch.Generator().manual_seed(1))
+              ["tokens"].cuda()}
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"], _ = prefill(inputs)
+
+    def run_decode(steps):
+        for i in range(steps):
+            tok = torch.argmax(state["logits"], -1)[:, None]
+            pos = torch.full((batch,), prompt_len + i, device="cuda")
+            state["logits"], state["caches"] = decode(tok, pos,
+                                                      state["caches"])
+
+    run_prefill()                                         # warm-up
+    run_decode(2)
+    cells = []
+    for label, fn, n_tok in (
+            (f"falcon-mamba-7b prefill {batch}x{prompt_len}", run_prefill,
+             batch * prompt_len),
+            (f"falcon-mamba-7b decode {batch}x{tokens}",
+             lambda: run_decode(tokens), batch * tokens)):
+        per_kernel = {}
+        by_family, launches, busy_us, wall = profiled(fn, per_kernel)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        cells.append(dict(
+            cell=label, wall_ms=wall * 1e3, device_ms=busy_us / 1e3,
+            idle_share=1.0 - busy_us / 1e6 / wall, launches=launches,
+            launches_per_token=launches / n_tok,
+            tokens_per_s=n_tok / wall,
+            device_ms_by_family={k: v / 1e3 for k, v in sorted(
+                by_family.items(), key=lambda kv: -kv[1])},
+            top_kernels=[dict(name=k[:90], device_ms=us / 1e3, launches=n)
+                         for k, (us, n) in top]))
+    return cells
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--cells", choices=("all", "fl", "serve"),
+                    default="all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -97,12 +173,22 @@ def main() -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    if args.cells in ("all", "fl"):
+        profile_fl(args.rounds)
+    if args.cells in ("all", "serve"):
+        for cell in profile_serve():
+            print(json.dumps(cell), flush=True)
+    return 0
+
+
+def profile_fl(rounds):
+    import chip_smoke
     from repro_torch.core import baselines as B
     from repro_torch.fl import FLTrainer
-    print(chip_smoke.nvidia_smi_line(), flush=True)
     task, ds, dep, eta, ota_p, _ = chip_smoke.fig2_setup(50, 6000)
     cell = profile_cell(FLTrainer(task, ds, dep, eta), B.ProposedOTA(ota_p),
-                        args.rounds, trials=4, seed=0)
+                        rounds, trials=4, seed=0)
     print(json.dumps(dict(cell="fig2_ota N=50", **cell)), flush=True)
     task, ds, dep, eta, _, dig_p = chip_smoke.fig2_setup(10, 1200)
     cfg = dep.cfg
@@ -114,20 +200,19 @@ def main() -> int:
                         B.BestChannelNorm(dep, *dconsts, k=4)),
                        ("fig2_fedtoe N=10 K=4", B.FedTOE(dep, *dconsts,
                                                           k=4))):
-        cell = profile_cell(trainer, agg, args.rounds, trials=4, seed=0,
+        cell = profile_cell(trainer, agg, rounds, trials=4, seed=0,
                             time_budget_s=150.0)
         print(json.dumps(dict(cell=label, **cell)), flush=True)
     task, ds, dep, eta, ota_p, dig_p = chip_smoke.fig3_setup()
     trainer = FLTrainer(task, ds, dep, eta)
-    cell = profile_cell(trainer, B.ProposedOTA(ota_p), args.rounds,
+    cell = profile_cell(trainer, B.ProposedOTA(ota_p), rounds,
                         trials=4, seed=9)
     print(json.dumps(dict(cell="fig3_ota N=10 d=147994", **cell)),
           flush=True)
-    cell = profile_cell(trainer, B.ProposedDigital(dig_p), args.rounds,
+    cell = profile_cell(trainer, B.ProposedDigital(dig_p), rounds,
                         trials=4, seed=9)
     print(json.dumps(dict(cell="fig3_digital N=10 d=147994 (fused)",
                           **cell)), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

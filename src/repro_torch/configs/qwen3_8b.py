@@ -1,0 +1,10 @@
+"""qwen3-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=12288
+vocab=151936, qk_norm. [hf:Qwen/Qwen3-8B]"""
+from ..models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b", arch_type="dense", n_layers=36, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=12288, vocab_size=151936,
+    head_dim=128, qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B",
+)

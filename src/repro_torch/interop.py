@@ -147,3 +147,40 @@ def packed_grads(ref) -> PackedGrads:
         words=torch.from_numpy(np.ascontiguousarray(words[:, :w_rows])),
         scal=torch.from_numpy(np.array(ref.scal)),
         code_bits=int(ref.code_bits), d=int(ref.d))
+
+
+def _leaf_tensor(x) -> torch.Tensor:
+    """A NumPy leaf as a tensor; bf16 leaves (ml_dtypes' ``bfloat16``) go
+    through their raw 16 bits."""
+    x = np.array(x)                       # a writable copy
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def model_state(params: dict) -> dict:
+    """The reference model's parameters (``Transformer.init``'s nested dict
+    of NumPy arrays) -> the port's ``state_dict``. Stacked leaves
+    ``groups/b<i>/...`` carry a leading group axis: group g, block i is the
+    port's layer ``g * len(pattern) + i`` (the port builds no pattern with
+    a tail yet). Load with ``model.load_state_dict(model_state(...))``."""
+    state = {}
+    pattern_len = len(params.get("groups", {}))
+    for name, leaf in _flatten(params):
+        head, _, rest = name.partition(".")
+        if head != "groups":
+            state[name] = _leaf_tensor(leaf)
+            continue
+        block, _, leaf_name = rest.partition(".")
+        for g, v in enumerate(np.asarray(leaf)):
+            state[f"layers.{g * pattern_len + int(block[1:])}.{leaf_name}"] \
+                = _leaf_tensor(v)
+    return state

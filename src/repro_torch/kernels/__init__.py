@@ -8,6 +8,7 @@ versions and their callers:
                     weighted sum in device order
   row_reduce      — per-row (max |g|, sum g^2) in a wider accumulator, the
                     device scores of the norm-based digital baselines
+  selective_scan  — the fused Mamba-1 selective scan of a model's prefill
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the sources
 build with nvcc at first use (``build.py``).
@@ -18,9 +19,11 @@ from .ota_combine import ota_combine
 from .payload import (packed_weighted_sum, quantize_pack_rows,
                       unpack_dequant_rows)
 from .row_reduce import row_maxabs_sumsq
+from .selective_scan import selective_scan
 
 KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
-           unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq)
+           unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq,
+           selective_scan)
 
 
 def launch_counts() -> dict:

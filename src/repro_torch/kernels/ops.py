@@ -1,4 +1,4 @@
-"""The kernels' callers on the FL path (counterparts of ``repro.kernels.ops``).
+"""The kernels' callers (counterparts of ``repro.kernels.ops``).
 
 The arithmetic the reference keeps outside its Pallas kernels stays
 outside here too: ``inv_alpha = 1/alpha`` and ``z = noise * inv_alpha``
@@ -18,6 +18,7 @@ from . import payload, ref, row_reduce
 from .dithered_quant import dithered_quantize_rows
 from .ota_combine import ota_combine
 from .payload import CODE_BITS_CHOICES
+from .selective_scan import selective_scan as selective_scan_kernel
 
 # At this payload dimension the digital aggregate switches from the
 # two-step quantize + matvec to the fused quantize -> bit-pack ->
@@ -197,3 +198,17 @@ def quantized_weighted_sum(gs: torch.Tensor, levels: torch.Tensor,
     pk = quantize_pack(gs, levels.to(gs.dtype).expand(gs.shape[:-1]),
                        dither, code_bits=cb)
     return packed_weighted_sum(pk, weights)
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a_w: torch.Tensor, h0: torch.Tensor,
+                   *, use_kernel: bool = True):
+    """Fused Mamba-1 selective scan. dt, x: (B, S, D); bm, cm: (B, S, n);
+    a_w: (D, n); h0: (B, D, n), all f32. Returns (y (B, S, D), h_last
+    (B, D, n)). The kernel takes the layout as it is (no padding or
+    transpose); ``use_kernel=False`` runs its plain version, which gives
+    the same bits."""
+    ins = [t.contiguous() for t in (dt, x, bm, cm, a_w, h0)]
+    if use_kernel:
+        return selective_scan_kernel(*ins)
+    return ref.selective_scan_ref(*ins)

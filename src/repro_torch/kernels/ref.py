@@ -182,3 +182,41 @@ def row_maxabs_sumsq_ref(g: torch.Tensor, acc_dtype) -> torch.Tensor:
         acc = acc[:, :s] + acc[:, s:2 * s]
         s //= 2
     return torch.stack([x.abs().amax(dim=(1, 2)), acc[:, 0]], dim=1)
+
+
+#: steps of the plain selective scan's transients at a time (memory only:
+#: the bits do not depend on it)
+SCAN_CHUNK = 128
+
+
+def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
+                       cm: torch.Tensor, a_w: torch.Tensor,
+                       h0: torch.Tensor):
+    """Fused Mamba-1 selective scan, in the kernel's arithmetic:
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * B_t) * x_t
+        y_t = sum_j h_t[:, j] * C_t[j],  j = 0, 1, ..., n - 1 in order
+
+    every product and sum rounded on its own (the kernel's ``_rn``
+    intrinsics), ``exp`` the accurate ``expf``. dt, x: (B, S, D), S >= 1;
+    bm, cm: (B, S, n); a_w: (D, n); h0: (B, D, n), all f32. Returns
+    (y (B, S, D), h_last (B, D, n)).
+    """
+    S = dt.shape[1]
+    h = h0
+    ys = []
+    for s0 in range(0, S, SCAN_CHUNK):
+        sl = slice(s0, s0 + SCAN_CHUNK)
+        dt_c = dt[:, sl, :, None]                        # (B, c, D, 1)
+        a = torch.exp(dt_c * a_w)                        # (B, c, D, n)
+        b = (dt_c * bm[:, sl, None, :]) * x[:, sl, :, None]
+        hs = torch.empty_like(a)
+        for i in range(a.shape[1]):
+            torch.add(a[:, i] * h, b[:, i], out=hs[:, i])
+            h = hs[:, i]
+        p = hs * cm[:, sl, None, :]
+        y = p[..., 0]
+        for j in range(1, p.shape[-1]):
+            y = y + p[..., j]
+        ys.append(y)
+    return torch.cat(ys, dim=1), h.clone()

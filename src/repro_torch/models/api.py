@@ -1,0 +1,77 @@
+"""Model-level API: inputs, prefill and decode (counterpart of
+``repro.models.api``).
+
+A batch is ``{"tokens": (B, S) int64}`` (decoder-only LMs; the VLM and
+audio inputs come with their front ends, ROADMAP Queue 1 item 10).
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
+from .common import ModelConfig
+from .layers import NOT_PORTED
+from .transformer import Transformer
+
+
+def make_model(cfg: ModelConfig, *, seed: Optional[int] = 0,
+               device=None) -> Transformer:
+    """The model with parameters drawn on ``device`` from a generator
+    seeded with ``seed``; ``seed=None`` leaves them uninitialised, for
+    weights loaded after."""
+    dev = resolve_device(device)
+    gen = (None if seed is None
+           else torch.Generator(device=dev).manual_seed(seed))
+    with torch.no_grad():
+        return Transformer(cfg, device=dev, generator=gen)
+
+
+def effective_seq(cfg: ModelConfig, seq: int) -> int:
+    if cfg.max_target_positions:
+        return min(seq, cfg.max_target_positions)
+    return seq
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int,
+               generator: torch.Generator) -> dict:
+    """A random batch of prompt tokens, drawn on the generator's device."""
+    if cfg.arch_type in ("vlm", "audio"):
+        raise NotImplementedError(f"{cfg.arch_type} inputs {NOT_PORTED}")
+    s = effective_seq(cfg, seq)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, s),
+                                    generator=generator,
+                                    device=generator.device)}
+
+
+@torch.no_grad()
+def prefill(model: Transformer, batch: dict, cache_len: int,
+            flags: Optional[dict] = None):
+    """Process the prompt, build the state cache, return the last logits.
+
+    Returns (logits_last (B, V), caches, memory); ``memory`` (the
+    encoder's output) is None for decoder-only models.
+    """
+    x = model.embed[batch["tokens"]]
+    caches = model.init_cache(x.shape[0], cache_len)
+    hidden, caches = model(x, mode="prefill", caches=caches, flags=flags)
+    logits = model.logits(hidden[:, -1:, :])[:, 0]
+    return logits, caches, None
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, token: torch.Tensor,
+                position: torch.Tensor, caches, memory=None,
+                flags: Optional[dict] = None):
+    """One-token decode. token: (B, 1); position: (B,) absolute index
+    (unused by Mamba layers). Returns (logits (B, V), new_caches)."""
+    x = model.embed[token]
+    hidden, caches = model(x, mode="decode", caches=caches, flags=flags)
+    logits = model.logits(hidden[:, 0:1, :])[:, 0]
+    return logits, caches
+
+
+def param_count(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

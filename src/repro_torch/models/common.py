@@ -1,0 +1,170 @@
+"""Shared model primitives: the config, the parameter initialiser and the
+RMS norm (counterparts of ``repro.models.common``).
+
+Parameters live in ``nn.Module``s under the reference's names, so a
+reference leaf ``groups/b0/mamba/in_proj`` (layer axis first) is the
+port's ``layers.<i>.mamba.in_proj`` (``repro_torch.interop``). They are
+drawn from one explicit ``torch.Generator`` on the target device, with the
+reference's shapes and scales; the draws themselves differ from JAX's, so
+tests carry the reference's weights across instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+
+# --------------------------------------------------------------- config
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    # layer pattern, cycled over depth: entries in {"global","local","rglru","mamba"}
+    layer_pattern: tuple = ("global",)
+    window_size: int = 4096
+    # MoE
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    # SSM (mamba-1)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0            # 0 -> d_model // 16
+    # RG-LRU (hybrid)
+    lru_width: int = 0              # 0 -> d_model
+    conv1d_width: int = 4
+    # encoder-decoder (audio)
+    encoder_layers: int = 0
+    encoder_positions: int = 0      # stub frame embeddings length
+    max_target_positions: int = 0   # decoder context limit (0 = unlimited)
+    # VLM
+    vision_prefix: int = 0          # stub patch embeddings prepended
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    # citation / provenance
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank if self.ssm_dt_rank else max(1, self.d_model // 16)
+
+    @property
+    def lru_dim(self) -> int:
+        return self.lru_width if self.lru_width else self.d_model
+
+    def kind(self, layer_idx: int) -> str:
+        return self.layer_pattern[layer_idx % len(self.layer_pattern)]
+
+    def scaled_down(self) -> "ModelConfig":
+        """Reduced variant for CPU smoke tests (<=2 groups, d<=256, <=4 experts)."""
+        pat = self.layer_pattern
+        n_layers = max(len(pat), 2)
+        d = min(self.d_model, 128)
+        heads = min(self.n_heads, 4)
+        kv = min(self.n_kv_heads, heads)
+        hd = d // heads
+        return dataclasses.replace(
+            self, n_layers=n_layers, d_model=d, n_heads=heads, n_kv_heads=kv,
+            head_dim=hd, d_ff=min(self.d_ff, 256) or 0,
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4),
+            n_experts_per_tok=min(self.n_experts_per_tok, 2),
+            ssm_state=min(self.ssm_state, 8), ssm_dt_rank=8 if self.ssm_state else 0,
+            lru_width=min(self.lru_dim, d) if self.lru_width else 0,
+            window_size=min(self.window_size, 64),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_positions=min(self.encoder_positions, 32),
+            vision_prefix=min(self.vision_prefix, 8),
+            dtype=torch.float32, name=self.name + "-smoke")
+
+
+# ------------------------------------------------------------ params
+
+class ParamInit:
+    """Draws parameters as ``repro.models.common.ParamBuilder.param`` does:
+    ``normal`` at 1/sqrt(shape[0]) unless a scale is given (drawn in f32,
+    then cast), ``zeros``, ``ones``, and ``ssm_a`` = log(1..n) per channel
+    computed in the parameter dtype. ``generator=None`` leaves every
+    parameter uninitialised (``torch.empty``), for weights loaded after.
+    """
+
+    def __init__(self, dtype, device, generator: Optional[torch.Generator]):
+        self.dtype = dtype
+        self.device = device
+        self.generator = generator
+
+    def __call__(self, shape: tuple, init: str = "normal",
+                 scale: Optional[float] = None) -> torch.Tensor:
+        kw = dict(dtype=self.dtype, device=self.device)
+        if self.generator is None:
+            return torch.empty(shape, **kw)
+        if init == "normal":
+            s = float(scale if scale is not None else 1.0 / math.sqrt(shape[0]))
+            v = torch.randn(shape, generator=self.generator,
+                            dtype=torch.float32, device=self.device)
+            return (v * s).to(self.dtype)
+        if init == "zeros":
+            return torch.zeros(shape, **kw)
+        if init == "ones":
+            return torch.ones(shape, **kw)
+        if init == "ssm_a":
+            n = shape[-1]
+            return torch.log(torch.arange(1, n + 1, **kw).repeat(shape[0], 1))
+        raise ValueError(init)
+
+
+class ParamModule(nn.Module):
+    """A module whose leaves are frozen parameters named as the
+    reference's, readable as ``p["name"]`` like the reference's dicts."""
+
+    def param(self, draw: ParamInit, name: str, shape: tuple, **kw) -> None:
+        self.register_parameter(
+            name, nn.Parameter(draw(shape, **kw), requires_grad=False))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+# ------------------------------------------------------------ functional
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 mean of squares and rsqrt, cast back before the weight multiply
+    (``repro.models.common.rms_norm``)."""
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), as ``jax.nn.silu`` writes it."""
+    return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """logaddexp(x, 0), as ``jax.nn.softplus`` (torch's ``F.softplus``
+    switches to x above a threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))

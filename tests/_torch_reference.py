@@ -19,7 +19,10 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.core.baselines", "repro.core.bounds",
                "repro.data.synthetic", "repro.data.partition",
                "repro.data.loader", "repro.kernels.ops", "repro.fl.tasks",
-               "repro.fl.engine", "repro.fl.trainer")
+               "repro.fl.engine", "repro.fl.trainer", "repro.configs",
+               "repro.models.common", "repro.models.layers",
+               "repro.models.transformer", "repro.models.api",
+               "repro.kernels.ref")
 
 
 @pytest.fixture(scope="module")
