@@ -10,9 +10,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build — nvcc builds the five sources of
    ``src/repro_torch/kernels/csrc`` (one process per source, all started
    together), with ptxas' register report;
-3. kernels — each of the seven kernels against its plain PyTorch version
+3. kernels — each of the eight kernels against its plain PyTorch version
    on the card, bit-equal, at the main path's shapes and at large ones,
-   with degenerate and ragged rows; the payload decoder ``unpack(pack(g))``
+   with degenerate and ragged rows (the whole-tensor quantizer also on one
+   tensor of more than 2^31 entries); the payload decoder ``unpack(pack(g))``
    also bit-equal to the two-step quantizer kernel on the same inputs;
    device times of kernel, plain version and the one PyTorch call
    computing the same function (where there is one), beside the least
@@ -53,7 +54,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly 64 scan launches in the
      prefill and none in decode, finite logits; prefill and decode
      tokens/s and the peak memory;
-6. the kernel table, nvidia-smi's line, and the result line.
+6. FL-LM training (``repro_torch.launch.train``, the wireless collective
+   ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
+     at 2 layers of the full width (bf16), the collective's kernel route
+     against its plain route on the same per-client gradients, bit-equal
+     in the ideal, OTA and digital modes;
+     at the ``scaled_down()`` sizes (f32), 3 steps under each aggregator
+     on the card against the CPU;
+     at full width and depth (22 layers, d_model 2048, 32 heads / 4 KV
+     heads, d_ff 5632, vocab 32,000, 1,100,048,384 bf16 parameters), 3
+     steps of 8 x 128 tokens over 4 clients under the ideal, OTA and
+     digital aggregators: exactly 12 ``ota_combine`` launches a step on
+     OTA, 48 ``dithered_quantize`` a step on digital, nothing else;
+     finite losses; the loss per step, steps/s, tokens/s and peak memory;
+7. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
 import gc
@@ -775,6 +789,252 @@ def serve_full():
     return counts
 
 
+# ------------------------------------------------ the FL-LM train slice
+
+TINYLLAMA = "tinyllama-1.1b"
+TINYLLAMA_PARAMS = 1_100_048_384
+QUANT_SOURCE = "src/repro_torch/kernels/csrc/dithered_quant.cu"
+TRAIN_RUN = dict(batch=8, seq=128, n_clients=4)
+
+
+def whole_quant_case(shape, dt, levels, seed, zero=False, timed=False):
+    """Kernel 3 (the whole-tensor quantizer) against its plain version,
+    bit-equal; timed at the main path's largest leaf."""
+    import torch
+    from repro_torch.kernels import dithered_quantize, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(shape, generator=gen, device="cuda", dtype=dt) * 3.0
+    if zero:
+        g.zero_()
+    u = torch.rand(shape, generator=gen, device="cuda")
+    m = g.abs().amax()
+    lv = torch.tensor(float(levels), dtype=dt, device="cuda")
+    scal = torch.stack([m, lv])
+    out = dithered_quantize(g, u, scal)
+    plain = ref.dithered_quantize_ref(g, u, m, lv)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    check(out.shape == g.shape and torch.equal(out, plain),
+          f"dithered_quantize != plain at {list(shape)} {dt} L={levels}: "
+          f"max err {err}")
+    live = bool(m > 0) and levels > 0
+    check(live or not bool(out.any()), "degenerate tensor must give 0")
+    n = g.numel()
+    s = g.element_size()
+    nbytes = n * ((s + 4) if live else 0) + n * s + 2 * s
+    row = dict(shape=list(shape), dtype=str(dt).split(".")[1],
+               levels=levels, max_abs_err=err, ms=None, plain_ms=None,
+               library_ms=None, bound_ms=None, bound_by=None)
+    if timed:
+        iters = 4 if nbytes > 64e6 else 50
+        row["ms"] = device_ms(lambda: dithered_quantize(g, u, scal), iters)
+        row["plain_ms"] = device_ms(
+            lambda: ref.dithered_quantize_ref(g, u, m, lv), iters)
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, 10 * n if live else 0, str(dt).split(".")[1])
+    return row
+
+
+def whole_quant_beyond_2_31():
+    """Kernel 3 on one tensor of 2^31 + 4097 f32 entries (int64 indexing),
+    checked against the plain version on three slices with the tensor's
+    own (m, L) (the quantizer is elementwise given them)."""
+    import torch
+    from repro_torch.kernels import dithered_quantize, ref
+    n = (1 << 31) + 4097
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    g = torch.randn(n, generator=gen, device="cuda")
+    u = torch.rand(n, generator=gen, device="cuda")
+    scal = torch.stack([g.abs().amax(), torch.tensor(255.0, device="cuda")])
+    out = dithered_quantize(g, u, scal)
+    worst = 0.0
+    for lo in (0, n // 2 - 777, n - (1 << 20)):
+        sl = slice(lo, lo + (1 << 20))
+        plain = ref.dithered_quantize_ref(g[sl], u[sl], scal[0], scal[1])
+        worst = max(worst, float((out[sl] - plain).abs().max()))
+        check(torch.equal(out[sl], plain),
+              f"dithered_quantize beyond 2^31: slice at {lo} differs")
+    emit(phase="kernel", kernel="dithered_quantize", shape=[n],
+         dtype="float32", levels=255.0, max_abs_err=worst,
+         checked="three slices of 2^20 entries")
+    del g, u, out
+    free_card()
+    return worst
+
+
+def client_grads(model, tokens, n_clients):
+    """Each client's gradient leaves (the reference's stacked leaves) for
+    one batch, computed once."""
+    from repro_torch import interop
+    from repro_torch.models import loss_fn
+    leaves = interop.reference_leaves(model)
+    rows = tokens.shape[0] // n_clients
+    out = []
+    for m in range(n_clients):
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, {"tokens": tokens[m * rows:(m + 1) * rows]})
+        loss.backward()
+        out.append([leaf.value(lambda p: p.grad) for leaf in leaves])
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def psum_kernel_vs_plain():
+    """wireless_psum at tinyllama's full width cut to 2 layers (bf16): the
+    kernel route and the plain route on the same per-client gradients
+    (the embedding's backward accumulates in no fixed order on the card,
+    so the gradients are computed once), bit-equal in every mode; one
+    epilogue launch a leaf (OTA), one quantizer launch a client and leaf
+    (digital)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rngstream
+    from repro_torch.core.collectives import WirelessRound, wireless_psum
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_config(TINYLLAMA), n_layers=2)
+    model = make_model(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                           device="cuda")
+    grads = client_grads(model, tokens, 4)
+    rnd = WirelessRound(weight=torch.tensor([0.5, 0.0, 1.5, 1.0]),
+                        alpha=torch.tensor(2.5),
+                        noise_scale=torch.tensor(1e-3),
+                        levels=torch.tensor([255.0, 15.0, 0.0, 65535.0]))
+    key = rngstream.prng_key(3)
+    n_leaves = len(grads[0])
+    result = {}
+    for mode, want in (("ideal", {}), ("ota", {"ota_combine": n_leaves}),
+                       ("digital", {"dithered_quantize": 4 * n_leaves})):
+        kernels.reset_launch_counts()
+        kern = wireless_psum(grads, rnd, key, mode=mode)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        plain = wireless_psum(grads, rnd, key, mode=mode, use_kernel=False)
+        after = kernels.launch_counts()
+        check(all(counts[k] == want.get(k, 0) for k in counts)
+              and after == counts,
+              f"wireless_psum {mode} launches {counts}, then {after}")
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(kern, plain))
+        check(all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                  for a, b in zip(kern, plain)),
+              f"wireless_psum {mode}: kernel and plain differ by {diff}")
+        check(all(bool(torch.isfinite(a).all()) for a in kern),
+              f"wireless_psum {mode}: not finite")
+        result[mode] = counts
+    emit(phase="psum_kernel_vs_plain", arch=TINYLLAMA, n_layers=2,
+         clients=4, leaves=n_leaves, dtype="bfloat16", bit_equal=True,
+         launches={m: {k: v for k, v in c.items() if v}
+                   for m, c in result.items()})
+    del model, grads
+    free_card()
+
+
+def train_small_vs_cpu():
+    """tinyllama's ``scaled_down()`` (f32) trained 3 steps on the card and
+    on the CPU from the same weights and batches, each aggregator: losses
+    within rtol 1e-4, parameters within 1e-4 of the largest magnitude
+    (digital: at most 0.1% of entries beyond, none beyond 1e-2: a gradient
+    gap of an ulp can flip a code at the dither floor)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_model
+    small = get_config(TINYLLAMA).scaled_down()
+    cpu0 = make_model(small, seed=0, device="cpu").state_dict()
+    run = dict(steps=3, batch=8, seq=32, n_clients=4, eta=0.5,
+               log=lambda s: None)
+    for agg in ("ideal", "ota", "digital"):
+        cpu_m = make_model(small, seed=None, device="cpu")
+        cpu_m.load_state_dict(cpu0)
+        card_m = make_model(small, seed=None)
+        card_m.load_state_dict(cpu0)
+        cpu = train(cpu_m, aggregator=agg, **run)
+        card = train(card_m, aggregator=agg, **run)
+        want = 3 * {"ideal": 0, "ota": 12, "digital": 48}[agg]
+        got = sum(c["ota_combine"] + c["dithered_quantize"]
+                  for c in card.launches)
+        check(got == want, f"scaled-down {agg}: {got} launches, not {want}")
+        rel = max(abs(a / b - 1) for a, b in zip(card.losses, cpu.losses))
+        gaps = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in zip(
+            card_m.state_dict().values(), cpu_m.state_dict().values())])
+        scale = max(float(b.abs().max()) for b in cpu_m.state_dict().values())
+        over = float((gaps > 1e-4 * scale).float().mean())
+        top = float(gaps.max()) / scale
+        check(rel <= 1e-4 and top <= (1e-2 if agg == "digital" else 1e-4)
+              and over <= (1e-3 if agg == "digital" else 0.0),
+              f"scaled-down {agg}: card vs CPU loss {rel}, parameters "
+              f"{top} of the largest ({over} of entries beyond 1e-4)")
+        emit(phase="train_small_vs_cpu", arch=small.name, aggregator=agg,
+             steps=3, max_rel_loss_diff=rel, max_param_gap=top,
+             share_beyond_1e_4=over, loss_card=card.losses,
+             loss_cpu=cpu.losses)
+        del card_m
+    free_card()
+
+
+def train_full():
+    """The slice's main path: tinyllama-1.1b at full width and depth (bf16,
+    random weights from seed 0), 3 FL steps of 8 x 128 tokens over 4
+    clients under each aggregator through the launcher's ``train``; counts
+    read around each run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_model, param_count
+    cfg = get_config(TINYLLAMA)
+    per_step = {"ideal": {}, "ota": {"ota_combine": 12},
+                "digital": {"dithered_quantize": 48}}
+    total = {}
+    for agg in ("ideal", "ota", "digital"):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = make_model(cfg, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = param_count(model)
+        check(n_params == TINYLLAMA_PARAMS
+              and all(p.dtype == torch.bfloat16 for p in model.parameters()),
+              f"tinyllama-1.1b has {n_params} parameters")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = train(model, aggregator=agg, steps=3, log=lambda s: None,
+                    **TRAIN_RUN)
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for step_counts in log.launches:
+            check(step_counts == {k: per_step[agg].get(k, 0)
+                                  for k in step_counts},
+                  f"tinyllama {agg}: step launches {step_counts}")
+        check(counts == {k: 3 * per_step[agg].get(k, 0) for k in counts},
+              f"tinyllama {agg}: launches {counts}")
+        check(all(np.isfinite(log.losses)),
+              f"tinyllama {agg}: losses {log.losses}")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+              f"tinyllama {agg}: parameters not finite")
+        tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
+        emit(phase="main_path", run=f"tinyllama-1.1b train {agg}",
+             arch=TINYLLAMA, n_layers=cfg.n_layers, params=n_params,
+             dtype="bfloat16", aggregator=agg, clients=4, steps=3,
+             batch=8, seq=128, launches=counts, loss=log.losses,
+             step_s=log.step_s, seconds=seconds, init_s=init_s,
+             steps_per_s=3 / sum(log.step_s),
+             tokens_per_s=3 * tokens / sum(log.step_s),
+             steady_steps_per_s=2 / sum(log.step_s[1:]),
+             steady_tokens_per_s=2 * tokens / sum(log.step_s[1:]),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del model
+    free_card()
+    return total
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -810,7 +1070,7 @@ def main() -> int:
          kernels=["ota_combine", "dithered_quantize_rows",
                   "quantize_pack_rows", "unpack_dequant_rows",
                   "packed_weighted_sum", "row_maxabs_sumsq",
-                  "selective_scan"])
+                  "selective_scan", "dithered_quantize"])
 
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
@@ -864,6 +1124,23 @@ def main() -> int:
         scan_rows[shape] = r
     free_card()
 
+    # the whole-tensor quantizer: tinyllama's largest stacked leaf (22
+    # layers of w_gate, f32, 8-bit levels), ragged sizes in f32 and f64,
+    # an all-zero tensor, levels 0, and a tensor of more than 2^31 entries
+    quant3_rows = {}
+    for shape, dt, levels, zero, timed in (
+            ((22, 2048, 5632), f32, 255.0, False, True),
+            ((1001,), f32, 15.0, False, False),
+            ((3, 5, 7777), f64, 1023.0, False, False),
+            ((4096, 1001), f32, 255.0, True, False),
+            ((1 << 20,), f32, 0.0, False, False)):
+        r = whole_quant_case(shape, dt, levels, seed=len(shape) + int(zero),
+                             zero=zero, timed=timed)
+        emit(phase="kernel", kernel="dithered_quantize", **r)
+        quant3_rows[(shape, dt, levels)] = r
+    whole_quant_beyond_2_31()
+    free_card()
+
     # 4. the main paths: Fig. 2 and Fig. 3 at full width
     launches = {}
 
@@ -874,7 +1151,7 @@ def main() -> int:
 
     none = {"quantize_pack_rows": 0, "packed_weighted_sum": 0,
             "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "dithered_quantize": 0}
     task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
@@ -933,7 +1210,8 @@ def main() -> int:
                                             "anchor)"),
              {"quantize_pack_rows": 40, "packed_weighted_sum": 40,
               "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
-              "ota_combine": 0, "row_maxabs_sumsq": 0},
+              "ota_combine": 0, "row_maxabs_sumsq": 0,
+              "dithered_quantize": 0},
              rounds=40, trials=4, eval_every=20, seed=9)
     # a baseline on the fused route: Best Channel's 6 bits pack as 8-bit
     # codes at d = 147,994
@@ -943,7 +1221,8 @@ def main() -> int:
                            cfg.noise_power, cfg.bandwidth_hz, k=4),
              {"quantize_pack_rows": 10, "packed_weighted_sum": 10,
               "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
-              "ota_combine": 0, "row_maxabs_sumsq": 0},
+              "ota_combine": 0, "row_maxabs_sumsq": 0,
+              "dithered_quantize": 0},
              must_fall=False, rounds=10, trials=4, eval_every=5, seed=9)
     del trainer, plain
     dither_matches_cpu(4, 10, 7850, (0, 1, 39))
@@ -960,11 +1239,21 @@ def main() -> int:
     for k, v in serve_full().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 6. the kernel table at the main path's shapes and types (launches:
+    # 6. FL-LM training: the collective's kernel route against its plain
+    # route at 2 layers of tinyllama's width, the scaled-down train step
+    # on the card against the CPU, then the main path at full width and
+    # depth
+    psum_kernel_vs_plain()
+    train_small_vs_cpu()
+    for k, v in train_full().items():
+        launches[k] = launches.get(k, 0) + v
+
+    # 7. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at
-    # falcon-mamba-7b's prefill)
+    # falcon-mamba-7b's prefill; dithered_quantize at tinyllama's largest
+    # leaf)
     main = (40, 147994, f64, 8)
     table = []
     for kname, source, replaces, rows, row in (
@@ -993,7 +1282,10 @@ def main() -> int:
              reduce_rows[(40, 7850, f64)]),
             ("selective_scan", SCAN_SOURCE,
              "src/repro/kernels/selective_scan.py:77", scan_rows,
-             scan_rows[(4, 512, 8192, 16)])):
+             scan_rows[(4, 512, 8192, 16)]),
+            ("dithered_quantize", QUANT_SOURCE,
+             "src/repro/kernels/dithered_quant.py:43", quant3_rows,
+             quant3_rows[((22, 2048, 5632), f32, 255.0)])):
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname],

@@ -19,6 +19,13 @@ kernel family (gradient GEMMs, the threefry dither's int64 bitwise and
 shift ops, each of the port's CUDA kernels, the copy of the host-made PS
 noise to the card, the rest).
 
+The train cell (``--cells train``) builds tinyllama-1.1b at full width
+and depth (random bf16 weights) and profiles one FL train step of 8 x 128
+tokens over 4 clients under each aggregator (ideal, OTA, digital), after
+a warm-up step, through ``launch.steps.make_train_step`` with the
+launcher's round inputs: wall and device time per step, idle share,
+launches per step, device time by family and the top kernels.
+
 The serve cell (``--cells serve``) builds falcon-mamba-7b at full width
 and depth (random bf16 weights) and profiles one prefill of 4 x 512
 prompt tokens and then 32 greedy decode steps of the 4 requests, each on
@@ -36,6 +43,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (                      # first match wins, on the kernel's name
     ("selective_scan", ("selective_scan",)),
+    ("dithered_quantize", ("dithered_quantize_kernel",)),
     ("ota_combine", ("ota_combine",)),
     ("dithered_quantize_rows", ("dithered_quantize",)),
     ("quantize_pack_rows", ("quantize_pack",)),
@@ -160,10 +168,61 @@ def profile_serve(batch=4, prompt_len=512, tokens=32):
     return cells
 
 
+def profile_train(batch=8, seq=128, n_clients=4):
+    """One tinyllama-1.1b FL train step under each aggregator."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rngstream
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import fl_round_arrays, make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import SGDConfig
+    cfg = get_config("tinyllama-1.1b")
+    _, ota_p = train_mod.design(n_clients, eta=1.0, g_max=10.0)
+    scale = float(np.mean(ota_p.gammas))
+    fl = fl_round_arrays(n_clients, gammas=ota_p.gammas / scale,
+                         alpha=ota_p.alpha / scale,
+                         noise_scale=np.sqrt(ota_p.noise_psd) / ota_p.alpha
+                         * 1e-2, levels=255.0)
+    tokens = train_mod.synthetic_token_batch(np.random.default_rng(0),
+                                             cfg.vocab_size, batch, seq)
+    tokens = {"tokens": tokens["tokens"].cuda()}
+    cells = []
+    for agg in ("ideal", "ota", "digital"):
+        model = make_model(cfg, seed=0)
+        step = make_train_step(model, n_clients=n_clients, aggregator=agg,
+                               sgd=SGDConfig(eta=1.0), batch=batch, seq=seq)
+        step(tokens, fl, rngstream.prng_key(0))                # warm-up
+        per_kernel = {}
+        c0 = kernels.launch_counts()
+        by_family, launches, busy_us, wall = profiled(
+            lambda: step(tokens, fl, rngstream.prng_key(1)), per_kernel)
+        c1 = kernels.launch_counts()
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        cells.append(dict(
+            cell=f"tinyllama-1.1b train {agg} N={n_clients} "
+                 f"{batch}x{seq}",
+            wall_ms_per_step=wall * 1e3, device_ms_per_step=busy_us / 1e3,
+            idle_share=1.0 - busy_us / 1e6 / wall,
+            launches_per_step=launches,
+            port_kernel_launches={k: c1[k] - c0[k] for k in c0
+                                  if c1[k] - c0[k]},
+            tokens_per_s=batch * seq / wall,
+            device_ms_by_family={k: v / 1e3 for k, v in sorted(
+                by_family.items(), key=lambda kv: -kv[1])},
+            top_kernels=[dict(name=k[:90], device_ms=us / 1e3, launches=n)
+                         for k, (us, n) in top]))
+        del model, step
+        torch.cuda.empty_cache()
+    return cells
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=40)
-    ap.add_argument("--cells", choices=("all", "fl", "serve"),
+    ap.add_argument("--cells", choices=("all", "fl", "serve", "train"),
                     default="all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
@@ -178,6 +237,9 @@ def main() -> int:
         profile_fl(args.rounds)
     if args.cells in ("all", "serve"):
         for cell in profile_serve():
+            print(json.dumps(cell), flush=True)
+    if args.cells in ("all", "train"):
+        for cell in profile_train():
             print(json.dumps(cell), flush=True)
     return 0
 

@@ -6,8 +6,10 @@
   digital     — biased digital aggregation (Sec. II-B)
   quantize    — digital payload size
   bounds      — design-objective weights
-  ota_design / digital_design — closed-form Sec. IV design anchors
-  baselines   — the Fig. 2 schemes of this slice
+  ota_design / digital_design — Sec. IV design anchors and the direct
+                OTA solver
+  baselines   — the Sec. V schemes
+  collectives — wireless_psum, the FL-LM train step's aggregation
 """
 from .channel import (WirelessConfig, Deployment, FadingProcess,
                       make_deployment)

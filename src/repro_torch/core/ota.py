@@ -32,6 +32,16 @@ class OTAParams:
         return self.g_max * self.gammas / np.sqrt(
             self.dim * self.energy_per_symbol)
 
+    def alpha_m(self, lambdas: np.ndarray) -> np.ndarray:
+        """alpha_m = gamma_m * exp(-gamma_m^2 G^2/(d Lambda_m E_s))."""
+        ex = -(self.gammas ** 2) * self.g_max ** 2 / (
+            self.dim * np.asarray(lambdas) * self.energy_per_symbol)
+        return self.gammas * np.exp(ex)
+
+    def participation_levels(self, lambdas: np.ndarray) -> np.ndarray:
+        """p_m = alpha_m / alpha."""
+        return self.alpha_m(lambdas) / self.alpha
+
 
 def alpha_m_max(lambdas: np.ndarray, dim: int, e_s: float,
                 g_max: float) -> np.ndarray:

@@ -3,15 +3,23 @@
 The reference draws quantization dither from JAX's threefry PRNG: the
 (N, d) uniform block of round ``t`` in trial ``trial`` is a pure function
 of ``(seed, trial, t)``. This module reimplements threefry2x32 and the
-three ``jax.random`` operations the dither stream uses, so the port
-regenerates the same bits without JAX:
+``jax.random`` operations the dither stream and the FL-LM collective use,
+so the port regenerates the same bits without JAX:
 
-  * ``prng_key(s)    = (0, s)`` for a 32-bit seed;
+  * ``prng_key(s)    = (0, s)`` for a 32-bit seed (also ``jax.random.key``);
   * ``fold_in(k, t)  = threefry2x32(k, x0=[0], x1=[t])``;
+  * ``split(k, n)[i] = threefry2x32(k, x0=[0], x1=[i])``;
   * ``uniform(k, shape)``: counters ``i = arange(prod(shape))`` split as
     ``(hi32(i), lo32(i))``, ``bits = y0 ^ y1``, and
     ``f32 = bitcast((bits >> 9) | 0x3F800000) - 1`` — JAX's layout under
-    ``jax_threefry_partitionable=True`` (the default since JAX 0.5).
+    ``jax_threefry_partitionable=True`` (the default since JAX 0.5). The
+    counters are drawn ``UNIFORM_CHUNK`` at a time: each is its flat index,
+    so chunking changes no bit and bounds the int64 temporaries;
+  * ``normal(k, shape)``: those uniforms mapped onto
+    [nextafter(-1, 0), 1) and ``sqrt(2) * erfinv(u)`` in f32, with XLA's
+    erfinv polynomial (torch's own ``erfinv`` is up to 91 ulp from it).
+    The uniforms are bit-equal, the normals within a few ulps
+    (``tests/test_torch_collectives.py`` states the gap).
 
 Words are 32-bit values held in int64 lanes and masked after every add and
 shift: CPU PyTorch has no uint32 add or shift. The same code runs on
@@ -67,12 +75,37 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, int(data) & _M32)
 
 
-def _uniform_f32(k0, k1, n: int, device) -> torch.Tensor:
-    """(..., n) f32 uniforms in [0, 1) from the first n counters."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
-    bits = ((y0 ^ y1) >> 9) | 0x3F800000          # < 2^31: fits int32
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+def split(key: tuple[int, int], n: int) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)`` (partitionable layout): key i hashes
+    the counter pair (0, i)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(int(n))]
+
+
+#: Counters hashed per pass of :func:`uniform` (each pass holds about ten
+#: int64 temporaries of this length: 1.3 GB at 2^24).
+UNIFORM_CHUNK = 1 << 24
+
+
+def _uniform_chunks(k0, k1, n: int, device):
+    """(start, (..., c) f32 uniforms in [0, 1)) for the counters
+    [start, start + c), ``UNIFORM_CHUNK`` at a time; k0, k1 are ints or
+    int64 tensors of shape (..., 1)."""
+    for c0 in range(0, n, UNIFORM_CHUNK):
+        i = torch.arange(c0, min(n, c0 + UNIFORM_CHUNK), dtype=torch.int64,
+                         device=device)
+        y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
+        bits = ((y0 ^ y1) >> 9) | 0x3F800000      # < 2^31: fits int32
+        yield c0, bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _uniform_f32(k0, k1, n: int, device, transform=None) -> torch.Tensor:
+    """(..., n) f32 uniforms from the first n counters, each chunk passed
+    through ``transform`` if given."""
+    lead = tuple(k0.shape[:-1]) if torch.is_tensor(k0) else ()
+    out = torch.empty(lead + (n,), dtype=torch.float32, device=device)
+    for c0, u in _uniform_chunks(k0, k1, n, device):
+        out[..., c0:c0 + u.shape[-1]] = u if transform is None else transform(u)
+    return out
 
 
 def uniform(key: tuple[int, int], shape, *, device="cpu") -> torch.Tensor:
@@ -80,6 +113,52 @@ def uniform(key: tuple[int, int], shape, *, device="cpu") -> torch.Tensor:
     shape = tuple(int(s) for s in shape)
     return _uniform_f32(key[0], key[1], int(np.prod(shape)),
                         device).reshape(shape)
+
+
+#: ``np.nextafter(-1, 0)`` in f32, the lower end of ``jax.random.normal``'s
+#: uniforms.
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+# XLA's f32 erfinv (Giles' single-precision approximation), the one
+# ``jax.random.normal`` lowers to: a degree-8 polynomial in w - 2.5 for
+# w = -log1p(-x^2) < 5, else in sqrt(w) - 3.
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of f32 x in (-1, 1) as XLA computes it (Horner steps with the
+    multiply and add rounded apart; erfinv(+-1) = +-f32 max * 1)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    lo, hi = torch.tensor((_ERFINV_W_LT5, _ERFINV_W_GE5), device=x.device)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = torch.where(lt, lo[i], hi[i]) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def _normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    # 1 - lo rounds to 2 in f32, so u * 2 is exact before the add
+    u = torch.clamp_min(u * 2.0 + _NORMAL_LO, _NORMAL_LO)
+    return erfinv_f32(u) * _SQRT2_F32
+
+
+def normal(key: tuple[int, int], shape, *, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: the uniforms mapped onto
+    [nextafter(-1, 0), 1) (bit-equal), then ``sqrt(2) * erfinv(u)`` with
+    XLA's polynomial, chunk by chunk (within 3 ulp: XLA's log1p and FMA
+    contraction differ from torch's)."""
+    shape = tuple(int(s) for s in shape)
+    return _uniform_f32(key[0], key[1], int(np.prod(shape)), device,
+                        _normal_from_uniform).reshape(shape)
 
 
 def stream_base_key(seed: int, trial: int, tag: int) -> tuple[int, int]:

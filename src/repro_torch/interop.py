@@ -8,6 +8,7 @@ parameters, deployments, datasets and models.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -170,17 +171,78 @@ def model_state(params: dict) -> dict:
     """The reference model's parameters (``Transformer.init``'s nested dict
     of NumPy arrays) -> the port's ``state_dict``. Stacked leaves
     ``groups/b<i>/...`` carry a leading group axis: group g, block i is the
-    port's layer ``g * len(pattern) + i`` (the port builds no pattern with
-    a tail yet). Load with ``model.load_state_dict(model_state(...))``."""
+    port's layer ``g * len(pattern) + i``; tail layer ``tail/<j>/...`` is
+    layer ``n_groups * len(pattern) + j``. Load with
+    ``model.load_state_dict(model_state(...))``."""
     state = {}
-    pattern_len = len(params.get("groups", {}))
+    groups = params.get("groups", {})
+    pattern_len = len(groups)
+    n_grouped = (pattern_len * len(next(_flatten(groups))[1])
+                 if groups else 0)
     for name, leaf in _flatten(params):
         head, _, rest = name.partition(".")
-        if head != "groups":
+        if head == "tail":
+            j, _, leaf_name = rest.partition(".")
+            state[f"layers.{n_grouped + int(j)}.{leaf_name}"] = \
+                _leaf_tensor(leaf)
+        elif head == "groups":
+            block, _, leaf_name = rest.partition(".")
+            for g, v in enumerate(np.asarray(leaf)):
+                state[f"layers.{g * pattern_len + int(block[1:])}."
+                      f"{leaf_name}"] = _leaf_tensor(v)
+        else:
             state[name] = _leaf_tensor(leaf)
-            continue
-        block, _, leaf_name = rest.partition(".")
-        for g, v in enumerate(np.asarray(leaf)):
-            state[f"layers.{g * pattern_len + int(block[1:])}.{leaf_name}"] \
-                = _leaf_tensor(v)
     return state
+
+
+class Leaf(NamedTuple):
+    """One leaf of the reference's parameter tree, viewed in the port: its
+    '/'-joined key path, the port's parameters that make it (one per
+    group, stacked along a leading axis, for ``groups/...`` leaves; one
+    otherwise), and whether it is stacked."""
+    key: str
+    params: tuple
+    stacked: bool
+
+    @property
+    def shape(self) -> tuple:
+        one = tuple(self.params[0].shape)
+        return (len(self.params),) + one if self.stacked else one
+
+    def value(self, of=lambda p: p) -> torch.Tensor:
+        """The leaf as the reference holds it (a new tensor when stacked),
+        built from ``of(param)`` (e.g. each parameter's ``.grad``)."""
+        parts = [of(p) for p in self.params]
+        return torch.stack(parts) if self.stacked else parts[0]
+
+    def parts(self, value: torch.Tensor) -> tuple:
+        """A leaf-shaped tensor cut into the pieces of ``params``."""
+        return tuple(value) if self.stacked else (value,)
+
+
+def reference_leaves(model) -> list:
+    """The inverse of :func:`model_state`: the port model's parameters as
+    the reference's leaves, in the order ``jax.tree.leaves`` gives them
+    (keys sorted at every level). Layer i of a pattern of P kinds is block
+    ``b<i % P>`` of group ``i // P`` while whole groups last, then
+    ``tail/<j>``. Per-leaf quantities of the wireless collective (the
+    quantizer's m, the key of ``split(key, n_leaves)``, the dither and
+    noise counters) are taken over these stacked leaves."""
+    pattern_len = len(model.cfg.layer_pattern)
+    n_grouped = model.cfg.n_layers // pattern_len * pattern_len
+    leaves: dict = {}
+    for name, p in model.named_parameters():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            leaves[(head,)] = [False, p]
+            continue
+        i, _, leaf_name = rest.partition(".")
+        i = int(i)
+        if i < n_grouped:
+            key = ("groups", f"b{i % pattern_len}", *leaf_name.split("."))
+            leaves.setdefault(key, [True]).append(p)
+        else:
+            key = ("tail", str(i - n_grouped), *leaf_name.split("."))
+            leaves[key] = [False, p]
+    return [Leaf("/".join(k), tuple(v[1:]), v[0])
+            for k, v in sorted(leaves.items())]

@@ -2,7 +2,8 @@
 versions and their callers:
 
   ota_combine     — fused OTA post-scale + noise epilogue (eq. (6))
-  dithered_quant  — per-row dithered quantize-dequantize (Sec. II-B)
+  dithered_quant  — dithered quantize-dequantize (Sec. II-B), per row
+                    and for one whole tensor
   payload         — the digital wire format at gradient scale: quantize and
                     bit-pack, unpack and dequantize, and the packed
                     weighted sum in device order
@@ -14,7 +15,7 @@ Each wrapper counts its launches in ``<wrapper>.launches``; the sources
 build with nvcc at first use (``build.py``).
 """
 from . import ops, ref
-from .dithered_quant import dithered_quantize_rows
+from .dithered_quant import dithered_quantize, dithered_quantize_rows
 from .ota_combine import ota_combine
 from .payload import (packed_weighted_sum, quantize_pack_rows,
                       unpack_dequant_rows)
@@ -23,7 +24,7 @@ from .selective_scan import selective_scan
 
 KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
            unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq,
-           selective_scan)
+           selective_scan, dithered_quantize)
 
 
 def launch_counts() -> dict:

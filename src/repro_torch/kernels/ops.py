@@ -14,9 +14,11 @@ import dataclasses
 
 import torch
 
+from ..core import rngstream
 from . import payload, ref, row_reduce
 from .dithered_quant import dithered_quantize_rows
-from .ota_combine import ota_combine
+from .dithered_quant import dithered_quantize as dithered_quantize_kernel
+from .ota_combine import ota_combine as ota_combine_kernel
 from .payload import CODE_BITS_CHOICES
 from .selective_scan import selective_scan as selective_scan_kernel
 
@@ -61,9 +63,28 @@ def ota_combine_with_noise(g: torch.Tensor, alpha, noise: torch.Tensor,
     inv_alpha = inv_alpha.reshape(-1).expand(g2.shape[0]).contiguous()
     z = noise.to(out_dt).reshape(g2.shape) * inv_alpha[:, None]
     if use_kernel:
-        out = ota_combine(g2.contiguous(), inv_alpha, z)
+        out = ota_combine_kernel(g2.contiguous(), inv_alpha, z)
     else:
         out = ref.ota_combine_ref(g2, inv_alpha, z)
+    return out.reshape(g.shape)
+
+
+def ota_combine(g: torch.Tensor, alpha, noise_scale, key,
+                *, use_kernel: bool = True) -> torch.Tensor:
+    """ghat = g/alpha + noise_scale * N(0, 1) for a whole tensor g (f32 or
+    f64), with the normals drawn from the threefry ``key``
+    (``repro/kernels/ops.py:354``): ``noise_scale`` is already divided by
+    alpha, so z is not scaled again. inv_alpha = (1/alpha) in f32, then
+    g's dtype; one launch of the OTA epilogue over g as one row."""
+    inv_alpha = (1.0 / torch.as_tensor(alpha, dtype=torch.float32,
+                                       device=g.device)).to(g.dtype)
+    scale = torch.as_tensor(noise_scale, dtype=torch.float32,
+                            device=g.device)
+    z = (scale * rngstream.normal(key, g.shape, device=g.device)).to(g.dtype)
+    g2, z2 = g.reshape(1, -1), z.reshape(1, -1)
+    inv_alpha = inv_alpha.reshape(1)
+    out = (ota_combine_kernel(g2.contiguous(), inv_alpha, z2) if use_kernel
+           else ref.ota_combine_ref(g2, inv_alpha, z2))
     return out.reshape(g.shape)
 
 
@@ -82,6 +103,21 @@ def row_maxabs_sumsq(gs: torch.Tensor, *, use_kernel: bool = True,
            if use_kernel else ref.row_maxabs_sumsq_ref(g2, acc_dtype))
     return (out[:, 0].reshape(gs.shape[:-1]),
             out[:, 1].reshape(gs.shape[:-1]))
+
+
+def dithered_quantize(g: torch.Tensor, levels, key,
+                      *, use_kernel: bool = True) -> torch.Tensor:
+    """Dithered stochastic quantize-dequantize of a whole tensor g (f32 or
+    f64) with m = max|g| over all of it and f32 dither uniform(key,
+    g.shape), whose counter is g's flat index (``repro/kernels/ops.py:102``).
+    m = 0 or levels <= 0 gives exactly 0. One launch over the tensor."""
+    m = g.abs().amax()
+    levels = torch.as_tensor(levels, dtype=g.dtype, device=g.device)
+    dither = rngstream.uniform(key, g.shape, device=g.device)
+    if not use_kernel:
+        return ref.dithered_quantize_ref(g, dither, m, levels)
+    return dithered_quantize_kernel(g.contiguous(), dither,
+                                    torch.stack([m, levels]))
 
 
 def dithered_quantize_batch(gs: torch.Tensor, levels: torch.Tensor,

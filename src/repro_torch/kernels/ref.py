@@ -44,6 +44,15 @@ def dithered_quantize_rows_ref(g: torch.Tensor, u: torch.Tensor,
     return torch.where(valid, out, torch.zeros_like(g))
 
 
+def dithered_quantize_ref(g: torch.Tensor, u: torch.Tensor, m: torch.Tensor,
+                          levels: torch.Tensor) -> torch.Tensor:
+    """The whole tensor g (any shape) quantized with one scalar (m, levels)
+    pair (0-dim tensors in g's dtype): the rows version on one row."""
+    return dithered_quantize_rows_ref(
+        g.reshape(1, -1), u.reshape(1, -1), m.reshape(1),
+        levels.reshape(1)).reshape(g.shape)
+
+
 # ------------------------------------------------- payload (wire format)
 #
 # Layout of the packed payload (``repro/kernels/payload.py:71-81``): a row

@@ -1,2 +1,3 @@
-"""Launch-side code (counterpart of ``repro.launch``): the one-card serve
-steps and the serve entry point (``python -m repro_torch.launch.serve``)."""
+"""Launch-side code (counterpart of ``repro.launch``): the one-card FL train
+step and serve steps, and their entry points (``python -m
+repro_torch.launch.train``, ``python -m repro_torch.launch.serve``)."""

@@ -1,16 +1,110 @@
-"""Serve steps on one card (counterparts of ``repro.launch.steps``
-``make_prefill_step`` / ``make_decode_step``).
+"""Step factories on one card (counterparts of ``repro.launch.steps``): the
+FL train step with the wireless collective, and the serve prefill and
+decode steps.
 
 Plain functions over a model already on its device: the reference's mesh,
 shardings and ``jit`` wait for the DeviceMesh item (ROADMAP Queue 1
-item 10).
+item 10). FL clients are the reference's data-axis slices: client m of N
+takes batch rows [m B/N, (m+1) B/N) and runs on the same card, one after
+another.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
+from .. import interop
+from ..core.collectives import WirelessRound, wireless_psum
 from ..models import api
 from ..models.transformer import Transformer
+from ..optim.sgd import SGDConfig, sgd_update
+
+
+# ------------------------------------------------------------- train step
+
+def fl_round_arrays(n_clients: int, *, gammas=None, chis=None, nus=None,
+                    alpha: float = 1.0, noise_scale: float = 0.0,
+                    levels: float = 255.0) -> dict:
+    """The per-round FL inputs as f32 tensors, one entry per client for
+    ``weight`` = chi * gamma / nu (f64 on the host, then f32) and
+    ``levels``. Defaults give an ideal round (all participate, weight 1).
+    """
+    ones = np.ones(n_clients)
+    gammas = ones if gammas is None else np.asarray(gammas)
+    chis = ones if chis is None else np.asarray(chis)
+    nus = ones if nus is None else np.asarray(nus)
+    f32 = torch.float32
+    return {
+        "weight": torch.as_tensor(chis * gammas / nus, dtype=f32),
+        "alpha": torch.tensor(alpha, dtype=f32),
+        "noise_scale": torch.tensor(noise_scale, dtype=f32),
+        "levels": torch.full((n_clients,), levels, dtype=f32),
+    }
+
+
+def make_train_step(model: Transformer, *, n_clients: int = 1,
+                    aggregator: str = "ota",
+                    sgd: SGDConfig = SGDConfig(eta=1e-2), batch: int = 8,
+                    seq: int = 128, use_kernel: bool = True):
+    """``step(batch_in, fl, key) -> mean unweighted loss`` (a 0-dim f32
+    tensor); the model's parameters are updated in place.
+
+    Each client's loss is multiplied by its wireless weight before the
+    backward pass (``fl["weight"][m]``: grad(w loss) = w grad), the
+    gradients are viewed as the reference's stacked leaves and aggregated
+    by :func:`wireless_psum` with weight 1, then one SGD step (in f32, cast
+    back to the parameters' dtype). ``key`` is a threefry key pair
+    (``rngstream.prng_key(t)`` for the reference's ``jax.random.key(t)``).
+    """
+    if batch % n_clients:
+        raise ValueError(f"batch {batch} does not split over {n_clients} "
+                         f"clients")
+    seq = api.effective_seq(model.cfg, seq)
+    rows = batch // n_clients
+    leaves = interop.reference_leaves(model)
+    params = [p for leaf in leaves for p in leaf.params]
+
+    def grads_of(p):
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def step(batch_in: dict, fl: dict, key):
+        tokens = batch_in["tokens"]
+        if tuple(tokens.shape) != (batch, seq):
+            raise ValueError(f"train step built for ({batch}, {seq}) "
+                             f"tokens, got {tuple(tokens.shape)}")
+        weight = fl["weight"].to(model.device)
+        losses = []
+
+        def clients():
+            for m in range(n_clients):
+                model.zero_grad(set_to_none=True)
+                loss, _ = api.loss_fn(
+                    model, {"tokens": tokens[m * rows:(m + 1) * rows]})
+                (loss * weight[m]).backward()
+                losses.append(loss.detach())
+                yield [leaf.value(grads_of) for leaf in leaves]
+            model.zero_grad(set_to_none=True)
+
+        rinfo = WirelessRound(weight=torch.ones(n_clients),
+                              alpha=fl["alpha"],
+                              noise_scale=fl["noise_scale"],
+                              levels=fl["levels"])
+        ghat = wireless_psum(clients(), rinfo, key, mode=aggregator,
+                             use_kernel=use_kernel)
+        sgd_update(sgd, params,
+                   [part for leaf, g in zip(leaves, ghat)
+                    for part in leaf.parts(g)])
+        total = losses[0]
+        for loss in losses[1:]:
+            total = total + loss
+        return total / n_clients
+
+    return step
+
+
+# ------------------------------------------------------------ serve steps
 
 
 def make_prefill_step(model: Transformer, *, batch: int, seq: int,

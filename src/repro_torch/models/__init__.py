@@ -1,8 +1,10 @@
-"""The model zoo (counterpart of ``repro.models``): Mamba-1 LMs so far."""
+"""The model zoo (counterpart of ``repro.models``): Mamba-1 LMs, and dense
+llama-style LMs in train mode."""
 from .common import ModelConfig
 from .transformer import Transformer
-from .api import (make_model, make_batch, prefill, decode_step,
+from .api import (make_model, make_batch, loss_fn, prefill, decode_step,
                   effective_seq, param_count)
 
 __all__ = ["ModelConfig", "Transformer", "make_model", "make_batch",
-           "prefill", "decode_step", "effective_seq", "param_count"]
+           "loss_fn", "prefill", "decode_step", "effective_seq",
+           "param_count"]

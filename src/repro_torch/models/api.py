@@ -1,5 +1,5 @@
-"""Model-level API: inputs, prefill and decode (counterpart of
-``repro.models.api``).
+"""Model-level API: inputs, the training loss, prefill and decode
+(counterpart of ``repro.models.api``).
 
 A batch is ``{"tokens": (B, S) int64}`` (decoder-only LMs; the VLM and
 audio inputs come with their front ends, ROADMAP Queue 1 item 10).
@@ -46,6 +46,35 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
                                     device=generator.device)}
 
 
+def _embed_inputs(model: Transformer, batch: dict):
+    """Returns (x (B, S, d), positions (B, S), loss_mask (B, S)) of a
+    decoder-only text batch."""
+    if model.cfg.arch_type in ("vlm", "audio"):
+        raise NotImplementedError(f"{model.cfg.arch_type} inputs {NOT_PORTED}")
+    tokens = batch["tokens"]
+    x = model.embed[tokens]
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+    return x, positions, mask
+
+
+def loss_fn(model: Transformer, batch: dict, flags: Optional[dict] = None):
+    """Mean next-token cross-entropy: f32 log-softmax and the masked mean of
+    the negative log-likelihood (``repro.models.api.loss_fn``; no MoE aux
+    term, MoE models are not built yet). Returns (loss, {"ce": loss})."""
+    x, positions, mask = _embed_inputs(model, batch)
+    hidden, _ = model(x, positions, mode="train", flags=flags)
+    logits = model.logits(hidden)                           # (B, S, V)
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = batch["tokens"][:, 1:]
+    nll = -torch.gather(lp, -1, tgt[..., None].long())[..., 0]
+    m = mask[:, 1:].float()
+    ce = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return ce, {"ce": ce}
+
+
 @torch.no_grad()
 def prefill(model: Transformer, batch: dict, cache_len: int,
             flags: Optional[dict] = None):
@@ -54,9 +83,10 @@ def prefill(model: Transformer, batch: dict, cache_len: int,
     Returns (logits_last (B, V), caches, memory); ``memory`` (the
     encoder's output) is None for decoder-only models.
     """
-    x = model.embed[batch["tokens"]]
+    x, positions, _ = _embed_inputs(model, batch)
     caches = model.init_cache(x.shape[0], cache_len)
-    hidden, caches = model(x, mode="prefill", caches=caches, flags=flags)
+    hidden, caches = model(x, positions, mode="prefill", caches=caches,
+                           flags=flags)
     logits = model.logits(hidden[:, -1:, :])[:, 0]
     return logits, caches, None
 
@@ -65,10 +95,11 @@ def prefill(model: Transformer, batch: dict, cache_len: int,
 def decode_step(model: Transformer, token: torch.Tensor,
                 position: torch.Tensor, caches, memory=None,
                 flags: Optional[dict] = None):
-    """One-token decode. token: (B, 1); position: (B,) absolute index
-    (unused by Mamba layers). Returns (logits (B, V), new_caches)."""
+    """One-token decode. token: (B, 1); position: (B,) absolute index.
+    Returns (logits (B, V), new_caches)."""
     x = model.embed[token]
-    hidden, caches = model(x, mode="decode", caches=caches, flags=flags)
+    hidden, caches = model(x, position[:, None], mode="decode",
+                           caches=caches, flags=flags)
     logits = model.logits(hidden[:, 0:1, :])[:, 0]
     return logits, caches
 

@@ -1,5 +1,5 @@
-"""Shared model primitives: the config, the parameter initialiser and the
-RMS norm (counterparts of ``repro.models.common``).
+"""Shared model primitives: the config, the parameter initialiser, the
+RMS norm, RoPE and SwiGLU (counterparts of ``repro.models.common``).
 
 Parameters live in ``nn.Module``s under the reference's names, so a
 reference leaf ``groups/b0/mamba/in_proj`` (layer axis first) is the
@@ -137,12 +137,12 @@ class ParamInit:
 
 
 class ParamModule(nn.Module):
-    """A module whose leaves are frozen parameters named as the
-    reference's, readable as ``p["name"]`` like the reference's dicts."""
+    """A module whose leaves are parameters named as the reference's,
+    readable as ``p["name"]`` like the reference's dicts. They train;
+    serving runs under ``torch.no_grad``."""
 
     def param(self, draw: ParamInit, name: str, shape: tuple, **kw) -> None:
-        self.register_parameter(
-            name, nn.Parameter(draw(shape, **kw), requires_grad=False))
+        self.register_parameter(name, nn.Parameter(draw(shape, **kw)))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
@@ -168,3 +168,24 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """logaddexp(x, 0), as ``jax.nn.softplus`` (torch's ``F.softplus``
     switches to x above a threshold)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, D); positions: (..., S). Angles and
+    the rotation in f32 (x widens), cast back to x's dtype."""
+    d_half = x.shape[-1] // 2
+    exps = -torch.arange(0, d_half, dtype=torch.float32,
+                         device=x.device) / d_half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exps)
+    ang = positions[..., :, None, None].float() * freq     # (..., S, 1, Dh)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    h = silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down

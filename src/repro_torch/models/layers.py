@@ -1,9 +1,14 @@
-"""Model blocks (counterpart of ``repro.models.layers``): the Mamba-1 part.
+"""Model blocks (counterpart of ``repro.models.layers``): attention (train
+mode), the SwiGLU MLP and Mamba-1.
 
 Conventions as the reference's: x is (B, S, d); decode calls use S == 1
-plus a cache; caches are dicts of tensors, ``{"conv": (B, K-1, d_inner)``
-in the model dtype, ``"h": (B, d_inner, n)`` in f32``}``. ``flags`` holds
-runtime options:
+plus a cache; a Mamba cache is ``{"conv": (B, K-1, d_inner)`` in the model
+dtype, ``"h": (B, d_inner, n)`` in f32``}``. Attention is plain torch
+products op for op as the reference's ``_attend_einsum`` (scores in f32,
+the NEG_INF mask, softmax, probabilities back in the model dtype): it is
+jnp code there, not a Pallas kernel. Its prefill and decode modes (the KV
+ring buffer) are not ported yet and raise. ``flags`` holds runtime
+options of the Mamba block:
 
   * ``mamba_kernel`` — the scan goes to ``kernels.ops.selective_scan``
     (the hand-written CUDA kernel on the card); with ``use_kernel=False``
@@ -13,8 +18,8 @@ runtime options:
   * neither — the materialised route through ``linear_scan_chunked``;
   * ``scan_chunk`` — the chunk of both plain routes (default 128).
 
-Attention, MLP, MoE and RG-LRU blocks are not ported yet (ROADMAP Queue 1
-item 10); their entry points raise ``NotImplementedError``.
+MoE and RG-LRU blocks are not ported yet (ROADMAP Queue 1 item 10); their
+entry points raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,10 +28,16 @@ from typing import Optional
 import torch
 
 from ..kernels import ops as kops
-from .common import ModelConfig, ParamInit, ParamModule, silu, softplus
+from .common import (ModelConfig, ParamInit, ParamModule, rms_norm, rope,
+                     silu, softplus)
 
 NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10: the model zoo; "
-              "only the Mamba-1 block runs in the port)")
+              "the port runs Mamba-1 layers, and dense attention and MLP "
+              "layers in train mode)")
+DENSE_SERVE = ("attention with a KV cache (prefill / decode) is not ported "
+               "yet (ROADMAP Queue 1 item 10, step 1: dense serve, the KV "
+               "ring buffer)")
+NEG_INF = -1e30
 
 
 def _not_ported(block: str):
@@ -36,10 +47,92 @@ def _not_ported(block: str):
     return fn
 
 
-init_attention = attention_apply = _not_ported("attention")
-init_mlp = mlp_apply = _not_ported("the MLP block")
 init_moe = moe_apply = _not_ported("the MoE block")
 init_rglru = rglru_apply = _not_ported("the RG-LRU block")
+
+
+# =============================================================== attention
+
+def init_attention(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p.param(init, "wq", (d, H, hd))
+    p.param(init, "wk", (d, KV, hd))
+    p.param(init, "wv", (d, KV, hd))
+    p.param(init, "wo", (H, hd, d))
+    if cfg.qk_norm:
+        p.param(init, "q_norm", (hd,), init="ones")
+        p.param(init, "k_norm", (hd,), init="ones")
+
+
+def _qk_normalize(cfg: ModelConfig, p, q, k):
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k
+
+
+def _attend_einsum(q, k, v, mask):
+    """q: (B, S, H, hd), k/v: (B, T, KV, hd), mask: (B, 1, S, T) ->
+    (B, S, H, hd); query head h reads KV head h // (H / KV)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scale = torch.sqrt(torch.tensor(float(hd), device=q.device)).to(q.dtype)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / scale
+    scores = scores.float()
+    scores = torch.where(mask[:, 0][:, None, None], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _causal_mask(positions_q: torch.Tensor, positions_k: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """(B, 1, S, T) mask: causal, optionally sliding-window, k-pos >= 0."""
+    pk = positions_k[:, None, None, :]
+    pq = positions_q[:, None, :, None]
+    m = (pk <= pq) & (pk >= 0)
+    if window is not None:
+        m &= pq - pk < window
+    return m
+
+
+def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
+                    positions: torch.Tensor, *, kind: str = "global",
+                    cache: Optional[dict] = None, mode: str = "train",
+                    flags: Optional[dict] = None):
+    """Causal self-attention over the whole sequence (``mode="train"``),
+    sliding-window for ``kind="local"``. Returns (y, None)."""
+    if mode != "train" or cache is not None:
+        raise NotImplementedError(DENSE_SERVE)
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"{kind} attention {NOT_PORTED}")
+    window = cfg.window_size if kind == "local" else None
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k = _qk_normalize(cfg, p, q, k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    mask = _causal_mask(positions, positions, window)
+    out = _attend_einsum(q, k, v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
+
+
+# ==================================================================== MLP
+
+def init_mlp(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
+    d, f = cfg.d_model, cfg.d_ff
+    p.param(init, "w_gate", (d, f))
+    p.param(init, "w_up", (d, f))
+    p.param(init, "w_down", (f, d))
+
+
+def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    h = silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
+    h = h * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
 
 
 # ================================================= chunked linear scans
@@ -170,6 +263,11 @@ def mamba_apply(cfg: ModelConfig, p, x: torch.Tensor,
         h_last = a_1 * h0 + b_1
         y = torch.einsum("bdn,bn->bd", h_last, Cmat[:, 0])[:, None]
     elif flags.get("mamba_kernel", False):
+        if dt.requires_grad:
+            raise NotImplementedError(
+                "the selective-scan kernel has no backward (nor has the "
+                "reference's); train Mamba layers on the fused or "
+                "materialised route, or serve under torch.no_grad()")
         y, h_last = kops.selective_scan(
             dt, xb.float(), Bmat, Cmat, A, h0,
             use_kernel=flags.get("use_kernel", True))

@@ -6,11 +6,14 @@ them under ``jax.lax.scan``; here each layer is one entry of an
 of the port is the reference's group ``i // len(pattern)``, block
 ``i % len(pattern)`` (then the tail). Parameter names follow the
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` and
-``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>``. Caches are a list with
-one dict per layer.
+``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>`` or ``layers.<i>.attn.<leaf>``,
+``layers.<i>.ln2``, ``layers.<i>.mlp.<leaf>``. Caches are a list with one
+dict per layer. ``repro_torch.interop`` maps these names to the
+reference's stacked leaves and back.
 
-Only Mamba-1 layers are ported (``layer_pattern == ("mamba",)``,
-falcon-mamba); other kinds, encoder-decoders and VLMs raise
+Mamba-1 layers (falcon-mamba) serve and train; dense layers (global and
+local attention with the SwiGLU MLP: the llama family, gemma3's pattern)
+run in train mode. MoE and RG-LRU layers, encoder-decoders and VLMs raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -25,34 +28,54 @@ from .common import ModelConfig, ParamInit, ParamModule, rms_norm
 
 
 class Layer(ParamModule):
-    """One layer: ``ln1`` and the block of its kind (``_init_layer``)."""
+    """One layer (``_init_layer``): ``ln1`` and the block of its kind, then
+    for attention layers ``ln2`` and the MLP (a Mamba layer has none)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, init: ParamInit):
         super().__init__()
+        self.kind = kind
         self.param(init, "ln1", (cfg.d_model,), init="ones")
-        if kind in ("global", "local", "encoder"):
-            L.init_attention(init, self, cfg)
+        if kind in ("global", "local"):
+            self.attn = ParamModule()
+            L.init_attention(init, self.attn, cfg)
+        elif kind == "mamba":
+            self.mamba = ParamModule()
+            L.init_mamba(init, self.mamba, cfg)
         elif kind == "rglru":
             L.init_rglru(init, self, cfg)
-        elif kind != "mamba":
+        else:
             raise ValueError(kind)
-        # a Mamba layer has no MLP (the reference adds one only to the
-        # other kinds)
-        self.mamba = ParamModule()
-        L.init_mamba(init, self.mamba, cfg)
+        if kind != "mamba" and cfg.d_ff > 0:
+            if cfg.n_experts > 0:
+                L.init_moe(init, self, cfg)
+            self.param(init, "ln2", (cfg.d_model,), init="ones")
+            self.mlp = ParamModule()
+            L.init_mlp(init, self.mlp, cfg)
 
-    def forward(self, cfg: ModelConfig, x, *, cache=None, mode="train",
-                flags=None):
-        """``_layer_apply`` for a Mamba layer: (x, new_cache)."""
+    def forward(self, cfg: ModelConfig, x, positions, *, cache=None,
+                mode="train", flags=None):
+        """``_layer_apply``: (x, new_cache)."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        y, nc = L.mamba_apply(cfg, self.mamba, h,
-                              cache=None if cache is None else cache["mamba"],
-                              mode=mode, flags=flags)
-        return x + y, ({"mamba": nc} if mode != "train" else None)
+        if self.kind == "mamba":
+            y, nc = L.mamba_apply(
+                cfg, self.mamba, h,
+                cache=None if cache is None else cache["mamba"], mode=mode,
+                flags=flags)
+            new_cache = {"mamba": nc} if mode != "train" else None
+        else:
+            y, _ = L.attention_apply(cfg, self.attn, h, positions,
+                                     kind=self.kind, cache=cache, mode=mode,
+                                     flags=flags)
+            new_cache = None
+        x = x + y
+        if hasattr(self, "ln2"):
+            x = x + L.mlp_apply(cfg, self.mlp,
+                                rms_norm(x, self.ln2, cfg.norm_eps))
+        return x, new_cache
 
 
 class Transformer(nn.Module):
-    """A decoder-only LM of Mamba-1 layers for one ModelConfig.
+    """A decoder-only LM for one ModelConfig.
 
     ``generator`` draws the parameters on ``device`` (embed, final_norm,
     lm_head, then layer by layer); ``generator=None`` leaves them
@@ -69,13 +92,10 @@ class Transformer(nn.Module):
         self.cfg = cfg
         init = ParamInit(cfg.dtype, device, generator)
         self.embed = nn.Parameter(
-            init((cfg.vocab_size, cfg.d_model), scale=0.02),
-            requires_grad=False)
-        self.final_norm = nn.Parameter(init((cfg.d_model,), init="ones"),
-                                       requires_grad=False)
+            init((cfg.vocab_size, cfg.d_model), scale=0.02))
+        self.final_norm = nn.Parameter(init((cfg.d_model,), init="ones"))
         self.lm_head = nn.Parameter(
-            init((cfg.d_model, cfg.vocab_size), scale=0.02),
-            requires_grad=False)
+            init((cfg.d_model, cfg.vocab_size), scale=0.02))
         self.layers = nn.ModuleList(
             Layer(cfg, cfg.kind(i), init) for i in range(cfg.n_layers))
 
@@ -85,18 +105,22 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
         """One ``{"mamba": {"conv", "h"}}`` per layer (a Mamba cache does
-        not grow with ``cache_len``)."""
+        not grow with ``cache_len``); attention layers have no cache yet."""
+        if any(layer.kind != "mamba" for layer in self.layers):
+            raise NotImplementedError(L.DENSE_SERVE)
         dtype = dtype or self.cfg.dtype
         return [{"mamba": L.init_mamba_cache(self.cfg, batch, dtype,
                                              self.device)}
                 for _ in self.layers]
 
-    def forward(self, x, *, mode="train", caches=None, flags=None):
-        """Backbone over embeddings x (B, S, d). Returns (hidden, caches)
-        (Mamba layers need no positions)."""
+    def forward(self, x, positions=None, *, mode="train", caches=None,
+                flags=None):
+        """Backbone over embeddings x (B, S, d) at ``positions`` (B, S)
+        (attention layers; Mamba layers read none). Returns (hidden,
+        caches)."""
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
-            x, nc = layer(self.cfg, x,
+            x, nc = layer(self.cfg, x, positions,
                           cache=None if caches is None else caches[i],
                           mode=mode, flags=flags)
             if new_caches is not None:

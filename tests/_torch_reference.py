@@ -22,7 +22,9 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.fl.engine", "repro.fl.trainer", "repro.configs",
                "repro.models.common", "repro.models.layers",
                "repro.models.transformer", "repro.models.api",
-               "repro.kernels.ref")
+               "repro.kernels.ref", "repro.core.collectives",
+               "repro.launch.mesh", "repro.launch.steps", "repro.optim.sgd",
+               "repro.checkpoint.ckpt")
 
 
 @pytest.fixture(scope="module")

@@ -108,15 +108,25 @@ def test_full_model_parameter_count(ref):
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
 def test_other_kinds_raise_not_implemented(arch):
+    """What the port does not run raises NotImplementedError naming its
+    ROADMAP item: MoE, RG-LRU and the front ends when the model is built;
+    dense attention (which builds and trains) when it is served, for its
+    KV cache is not ported."""
+    cfg = get_config(arch).scaled_down()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        make_model(get_config(arch).scaled_down(), device="cpu")
+        model = make_model(cfg, device="cpu")
+        prefill(model, make_batch(cfg, 1, 4, torch.Generator()), 8)
 
 
-@pytest.mark.parametrize("block", ["attention_apply", "mlp_apply",
+# attention is ported for training; only its cached modes are not
+_CACHED = {"attention_apply": dict(positions=None, mode="prefill")}
+
+
+@pytest.mark.parametrize("block", ["attention_apply", "init_moe",
                                    "moe_apply", "rglru_apply"])
 def test_unported_blocks_raise(block):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(L, block)(None, None, None)
+        getattr(L, block)(None, None, None, **_CACHED.get(block, {}))
 
 
 def test_default_device_is_the_card():
@@ -225,10 +235,11 @@ def test_mamba_apply_prefill_routes(ref, pair, route):
         ref.configs.get_config(ARCH).scaled_down(), _layer0(ref, params),
         jnp.asarray(x), cache={"conv": jnp.asarray(conv), "h": jnp.asarray(h0)},
         mode="prefill", flags=ROUTES[route])
-    y_p, c_p = L.mamba_apply(
-        cfg, model.layers[0].mamba, torch.from_numpy(x),
-        cache={"conv": torch.from_numpy(conv), "h": torch.from_numpy(h0)},
-        mode="prefill", flags=ROUTES[route])
+    with torch.no_grad():              # a prefill serves: no gradients
+        y_p, c_p = L.mamba_apply(
+            cfg, model.layers[0].mamba, torch.from_numpy(x),
+            cache={"conv": torch.from_numpy(conv), "h": torch.from_numpy(h0)},
+            mode="prefill", flags=ROUTES[route])
     _close(y_p, y_r)
     _close(c_p["h"], c_r["h"])
     _close(c_p["conv"], c_r["conv"])   # the in_proj product's last rows

@@ -164,6 +164,8 @@ def test_port_imports_neither_jax_nor_reference():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.fl, repro_torch.interop\n"
             "import repro_torch.kernels, repro_torch.core\n"
+            "import repro_torch.optim, repro_torch.checkpoint\n"
+            "import repro_torch.core.collectives, repro_torch.launch.train\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
