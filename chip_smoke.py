@@ -7,10 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device — the card's name and count, and nvidia-smi's name and power
    limit line;
-2. build — nvcc builds the five sources of
+2. build — nvcc builds the six sources of
    ``src/repro_torch/kernels/csrc`` (one process per source, all started
    together), with ptxas' register report;
-3. kernels — each of the eight kernels against its plain PyTorch version
+3. kernels — each of the nine kernels against its plain PyTorch version
    on the card, bit-equal, at the main path's shapes and at large ones,
    with degenerate and ragged rows (the whole-tensor quantizer also on one
    tensor of more than 2^31 entries); the payload decoder ``unpack(pack(g))``
@@ -42,18 +42,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the CPU's to the bit; every scheme at a small size, and the proposed
    ones at Fig. 3 width, must agree with the port's CPU run (which the
    tests tie to the JAX reference);
-5. serve — falcon-mamba-7b (``repro_torch.launch.serve.serve``, the
-   selective scan on its CUDA kernel), random weights from a seed:
-     at 2 layers of the full width, 4 prompts of 512 tokens and 32
-     decoded tokens with the kernel and again with its plain version fed
-     the same tokens: prefill and decode logits bit-equal;
+5. serve (``repro_torch.launch.serve.serve``), random weights from a
+   seed, for falcon-mamba-7b (the selective scan on its CUDA kernel) and
+   recurrentgemma-2b (the RG-LRU recurrence on the linear-scan kernel,
+   local attention over the KV ring buffer):
+     at full width cut to one pattern (falcon-mamba 2 layers,
+     recurrentgemma 3: rglru, rglru, local), 4 prompts (512 tokens;
+     recurrentgemma 2,560, over its 2,048-token window) and 32 decoded
+     tokens with the kernel and again with its plain version fed the same
+     tokens: prefill and decode logits bit-equal;
      at the ``scaled_down()`` sizes (f32) on the card against the CPU run
      (which the tests tie to the JAX reference), within the tests' 1e-4;
-     at full width and full depth (64 layers, d_model 4096, d_inner 8192,
-     n 16, vocab 65,024, 7,272,665,088 bf16 parameters), 4 x 512 prompt
-     tokens and 32 decoded tokens: exactly 64 scan launches in the
-     prefill and none in decode, finite logits; prefill and decode
-     tokens/s and the peak memory;
+     at full width and full depth, 4 x 512 (falcon-mamba-7b: 64 layers,
+     d_model 4096, d_inner 8192, n 16, vocab 65,024, 7,272,665,088 bf16
+     parameters) or 4 x 2,560 (recurrentgemma-2b: 26 layers, 18 RG-LRU
+     and 8 local, d_model 2560, 10 heads / 1 KV head of 256, d_ff 7680,
+     lru_width 2560, vocab 256,000, 3,549,934,080 bf16 parameters) prompt
+     tokens and 32 decoded tokens: exactly one scan launch a recurrent
+     layer in the prefill (64, 18) and none in decode, finite logits;
+     prefill and decode tokens/s and the peak memory;
 6. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
@@ -377,6 +384,49 @@ def scan_case(B, S, D, n, seed):
                 bound_by=b_by)
 
 
+LSCAN_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
+
+
+def lscan_case(B, S, D, seed, identity=False):
+    """The linear scan against its plain version on the reference test's
+    distributions (``tests/test_kernels.py``: a uniform in [0.3, 0.999),
+    b normal x 0.1, h0 normal), or on identity dynamics (a = 1, b = 0:
+    h_t = h0 exactly): bit-equal h_all and h_last."""
+    import torch
+    from repro_torch.kernels import linear_scan, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=gen, device="cuda")
+    h0 = torch.randn(B, D, **kw)
+    if identity:
+        a = torch.ones(B, S, D, device="cuda")
+        b = torch.zeros(B, S, D, device="cuda")
+    else:
+        a = torch.rand(B, S, D, **kw) * 0.699 + 0.3
+        b = torch.randn(B, S, D, **kw) * 0.1
+    h, last = linear_scan(a, b, h0)
+    h_p, last_p = ref.linear_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    tag = f"({B}, {S}, {D}){' identity' if identity else ''}"
+    check(h.shape == (B, S, D) and last.shape == (B, D)
+          and bool(torch.isfinite(h).all()), f"linear_scan output at {tag}")
+    err = max(float((h - h_p).abs().max()), float((last - last_p).abs().max()))
+    check(torch.equal(h, h_p) and torch.equal(last, last_p),
+          f"linear_scan != plain at {tag}: max err {err}")
+    check(not identity or (torch.equal(h, h0[:, None].expand(B, S, D))
+                           and torch.equal(last, h0)),
+          f"linear_scan identity dynamics moved h at {tag}")
+    # a and b read once, h_all written once, h0 and h_last; a multiply
+    # and an add a step
+    nbytes = 4 * (3 * B * S * D + 2 * B * D)
+    ms = device_ms(lambda: linear_scan(a, b, h0), 5 if nbytes > 64e6 else 20)
+    plain_ms = device_ms(lambda: ref.linear_scan_ref(a, b, h0),
+                         1 if S >= 2048 else 3, reps=3)
+    b_ms, b_by = bound(nbytes, 2 * B * S * D, "float32")
+    return dict(shape=[B, S, D], dtype="float32", identity=identity,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # --------------------------------------------------------------- main path
 
 def fig2_setup(n_devices, n_train_per_class, t_max_s=0.2):
@@ -658,7 +708,18 @@ def fig3_matches_cpu():
 
 
 MAMBA = "falcon-mamba-7b"
-FULL_PARAMS = 7_272_665_088
+RGEMMA = "recurrentgemma-2b"
+# each served model: the kernel of its prefill, the layer kind that
+# launches it (once a layer), the layers of its full-width cut, the prompt
+# tokens of the cut and of the main path (recurrentgemma's exceed its
+# 2,048-token window), the scaled-down run's prompt tokens (over the
+# scaled-down 64-token window), and its parameters at full size
+SERVED = {
+    MAMBA: dict(kernel="selective_scan", kind="mamba", cut=2,
+                prompt_len=512, small_prompt=64, params=7_272_665_088),
+    RGEMMA: dict(kernel="linear_scan", kind="rglru", cut=3,
+                 prompt_len=2560, small_prompt=96, params=3_549_934_080),
+}
 
 
 def free_card():
@@ -667,61 +728,74 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-def serve_kernel_vs_plain():
-    """falcon-mamba at full width cut to 2 layers: the serve loop with the
-    scan kernel, then with its plain version fed the same tokens; prefill
-    and decode logits must be bit-equal."""
+def recurrent_layers(cfg, kind) -> int:
+    return sum(cfg.kind(i) == kind for i in range(cfg.n_layers))
+
+
+def serve_kernel_vs_plain(arch):
+    """The model at full width cut to its first layers: the serve loop
+    with the scan kernel, then with its plain version fed the same tokens;
+    prefill and decode logits must be bit-equal."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import SERVE_FLAGS, serve
     from repro_torch.models import make_model
-    cfg = dataclasses.replace(get_config(MAMBA), n_layers=2)
+    cell = SERVED[arch]
+    kname = cell["kernel"]
+    cfg = dataclasses.replace(get_config(arch), n_layers=cell["cut"])
+    n_rec = recurrent_layers(cfg, cell["kind"])
     model = make_model(cfg, seed=0)
-    run = dict(batch=4, prompt_len=512, tokens=32, keep_logits=True)
+    run = dict(batch=4, prompt_len=cell["prompt_len"], tokens=32,
+               keep_logits=True)
     kern = serve(model, **run)
     plain = serve(model, flags={**SERVE_FLAGS, "use_kernel": False},
                   feed=kern.generated, **run)
-    check(kern.prefill_launches["selective_scan"] == 2
-          and kern.decode_launches["selective_scan"] == 0
-          and plain.prefill_launches["selective_scan"] == 0,
-          f"2-layer serve launches: kernel {kern.prefill_launches}, "
-          f"plain {plain.prefill_launches}")
+    check(kern.prefill_launches[kname] == n_rec
+          and sum(kern.prefill_launches.values()) == n_rec
+          and sum(kern.decode_launches.values()) == 0
+          and sum(plain.prefill_launches.values()) == 0,
+          f"{arch} {cell['cut']}-layer serve launches: kernel "
+          f"{kern.prefill_launches}, plain {plain.prefill_launches}")
     check(bool(torch.isfinite(kern.prefill_logits).all())
           and bool(torch.isfinite(kern.decode_logits).all()),
-          "2-layer serve logits not finite")
+          f"{arch} {cell['cut']}-layer serve logits not finite")
     diff = max(float((kern.prefill_logits.float()
                       - plain.prefill_logits.float()).abs().max()),
                float((kern.decode_logits.float()
                       - plain.decode_logits.float()).abs().max()))
     check(torch.equal(kern.prefill_logits, plain.prefill_logits)
           and torch.equal(kern.decode_logits, plain.decode_logits),
-          f"2-layer serve: kernel and plain logits differ by {diff}")
-    emit(phase="serve_kernel_vs_plain", arch=MAMBA, n_layers=2,
-         batch=4, prompt_len=512, tokens=32, dtype="bfloat16",
+          f"{arch} {cell['cut']}-layer serve: kernel and plain logits "
+          f"differ by {diff}")
+    emit(phase="serve_kernel_vs_plain", arch=arch, n_layers=cell["cut"],
+         kernel=kname, launches=n_rec, batch=4,
+         prompt_len=cell["prompt_len"], tokens=32, dtype="bfloat16",
          bit_equal=True, max_abs_diff=diff,
          prefill_s_kernel=kern.prefill_s, prefill_s_plain=plain.prefill_s)
     del model, kern, plain
     free_card()
 
 
-def serve_small_vs_cpu():
-    """falcon-mamba at its ``scaled_down()`` sizes (f32) served on the
-    card against the port's CPU run with the same weights, prompts and
-    decode tokens: logits within the tests' 1e-4 (relative to the largest
+def serve_small_vs_cpu(arch):
+    """The model at its ``scaled_down()`` sizes (f32) served on the card
+    against the port's CPU run with the same weights, prompts and decode
+    tokens: logits within the tests' 1e-4 (relative to the largest
     magnitude, plus 1e-4 relative)."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import make_model
-    small = get_config(MAMBA).scaled_down()
+    cell = SERVED[arch]
+    small = get_config(arch).scaled_down()
     cpu_m = make_model(small, seed=0, device="cpu")
     card_m = make_model(small, seed=None)
     card_m.load_state_dict(cpu_m.state_dict())
-    run = dict(batch=4, prompt_len=64, tokens=8, keep_logits=True)
+    run = dict(batch=4, prompt_len=cell["small_prompt"], tokens=8,
+               keep_logits=True)
     cpu = serve(cpu_m, **run)
     card = serve(card_m, feed=cpu.generated, **run)
-    check(card.prefill_launches["selective_scan"] == small.n_layers,
-          f"scaled-down serve launches {card.prefill_launches}")
+    check(card.prefill_launches[cell["kernel"]]
+          == recurrent_layers(small, cell["kind"]),
+          f"scaled-down {arch} serve launches {card.prefill_launches}")
     worst = 0.0
     for got, want in ((card.prefill_logits, cpu.prefill_logits),
                       (card.decode_logits, cpu.decode_logits)):
@@ -731,54 +805,58 @@ def serve_small_vs_cpu():
         gap = (got - want).abs()
         worst = max(worst, float(gap.max()) / scale)
         check(bool((gap <= 1e-4 * want.abs() + 1e-4 * scale).all()),
-              f"scaled-down serve: card vs CPU logits differ by "
+              f"scaled-down {arch} serve: card vs CPU logits differ by "
               f"{float(gap.max())} (largest logit {scale})")
     emit(phase="serve_small_vs_cpu", arch=small.name, max_rel_diff=worst,
-         limit=1e-4, batch=4, prompt_len=64, tokens=8)
+         limit=1e-4, batch=4, prompt_len=cell["small_prompt"], tokens=8)
     del card_m, card
     free_card()
 
 
-def serve_full():
-    """The slice's main path: falcon-mamba-7b at full width and depth,
-    4 requests of 512 prompt tokens and 32 decoded tokens, after a
-    2-token warm-up; counts read around the measured run."""
+def serve_full(arch):
+    """The model's main path at full width and depth, 4 requests and 32
+    decoded tokens, after a 2-token warm-up; counts read around the
+    measured run: one scan launch a recurrent layer in the prefill, none
+    in decode, no other kernel."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import make_model, param_count
-    cfg = get_config(MAMBA)
+    cell = SERVED[arch]
+    kname = cell["kernel"]
+    cfg = get_config(arch)
+    n_rec = recurrent_layers(cfg, cell["kind"])
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = make_model(cfg, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(model)
-    check(n_params == FULL_PARAMS and model.embed.dtype == torch.bfloat16,
-          f"falcon-mamba-7b has {n_params} parameters")
-    run = dict(batch=4, prompt_len=512)
+    check(n_params == cell["params"] and model.embed.dtype == torch.bfloat16,
+          f"{arch} has {n_params} parameters")
+    run = dict(batch=4, prompt_len=cell["prompt_len"])
     serve(model, tokens=2, **run)                          # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = serve(model, tokens=32, keep_logits=True, **run)
     counts = kernels.launch_counts()
-    check(out.prefill_launches["selective_scan"] == cfg.n_layers
-          and out.decode_launches["selective_scan"] == 0
-          and counts["selective_scan"] == cfg.n_layers
-          and sum(counts.values()) == cfg.n_layers,
-          f"full serve launches: prefill {out.prefill_launches}, decode "
-          f"{out.decode_launches}")
+    check(out.prefill_launches[kname] == n_rec
+          and sum(out.decode_launches.values()) == 0
+          and counts[kname] == n_rec and sum(counts.values()) == n_rec,
+          f"full {arch} serve launches: prefill {out.prefill_launches}, "
+          f"decode {out.decode_launches}")
     check(out.generated.shape == (4, 33)
           and bool(((out.generated >= 0)
                     & (out.generated < cfg.vocab_size)).all())
           and bool(torch.isfinite(out.prefill_logits).all())
           and bool(torch.isfinite(out.decode_logits).all()),
-          "full serve: logits not finite or tokens out of range")
+          f"full {arch} serve: logits not finite or tokens out of range")
     peak = torch.cuda.max_memory_allocated()
-    emit(phase="main_path", run="falcon-mamba-7b serve", arch=MAMBA,
+    emit(phase="main_path", run=f"{arch} serve", arch=arch,
          n_layers=cfg.n_layers, params=n_params, dtype="bfloat16",
-         launches=counts, batch=4, prompt_len=512, tokens=32,
+         launches=counts, batch=4, prompt_len=cell["prompt_len"], tokens=32,
          init_s=init_s, prefill_s=out.prefill_s, decode_s=out.decode_s,
          prefill_tokens_per_s=out.prefill_tokens_per_s,
          decode_tokens_per_s=out.decode_tokens_per_s,
@@ -1070,7 +1148,7 @@ def main() -> int:
          kernels=["ota_combine", "dithered_quantize_rows",
                   "quantize_pack_rows", "unpack_dequant_rows",
                   "packed_weighted_sum", "row_maxabs_sumsq",
-                  "selective_scan", "dithered_quantize"])
+                  "selective_scan", "dithered_quantize", "linear_scan"])
 
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
@@ -1124,6 +1202,19 @@ def main() -> int:
         scan_rows[shape] = r
     free_card()
 
+    # the linear scan: recurrentgemma-2b's prefill (4 x 2,560 tokens,
+    # lru_width 2560), the reference test's shapes, identity dynamics, and
+    # one long sequence
+    lscan_rows = {}
+    for shape, identity in (((4, 2560, 2560), False), ((1, 16, 8), False),
+                            ((2, 300, 200), False), ((3, 256, 128), False),
+                            ((2, 1024, 64), False), ((1, 37, 129), False),
+                            ((2, 512, 128), True), ((1, 8192, 2560), False)):
+        r = lscan_case(*shape, seed=sum(shape), identity=identity)
+        emit(phase="kernel", kernel="linear_scan", **r)
+        lscan_rows[shape + (identity,)] = r
+    free_card()
+
     # the whole-tensor quantizer: tinyllama's largest stacked leaf (22
     # layers of w_gate, f32, 8-bit levels), ragged sizes in f32 and f64,
     # an all-zero tensor, levels 0, and a tensor of more than 2^31 entries
@@ -1151,7 +1242,7 @@ def main() -> int:
 
     none = {"quantize_pack_rows": 0, "packed_weighted_sum": 0,
             "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0,
-            "selective_scan": 0, "dithered_quantize": 0}
+            "selective_scan": 0, "dithered_quantize": 0, "linear_scan": 0}
     task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
@@ -1231,13 +1322,15 @@ def main() -> int:
     fig3_matches_cpu()
     free_card()
 
-    # 5. serve falcon-mamba-7b: the kernel against its plain version at 2
-    # layers, the card against the CPU at the reduced sizes, then the main
-    # path at full width and depth
-    serve_kernel_vs_plain()
-    serve_small_vs_cpu()
-    for k, v in serve_full().items():
-        launches[k] = launches.get(k, 0) + v
+    # 5. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
+    # its plain version at full width cut to one pattern, the card against
+    # the CPU at the reduced sizes, then the main path at full width and
+    # depth
+    for arch in (MAMBA, RGEMMA):
+        serve_kernel_vs_plain(arch)
+        serve_small_vs_cpu(arch)
+        for k, v in serve_full(arch).items():
+            launches[k] = launches.get(k, 0) + v
 
     # 6. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
@@ -1253,7 +1346,7 @@ def main() -> int:
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at
     # falcon-mamba-7b's prefill; dithered_quantize at tinyllama's largest
-    # leaf)
+    # leaf; linear_scan at recurrentgemma-2b's prefill)
     main = (40, 147994, f64, 8)
     table = []
     for kname, source, replaces, rows, row in (
@@ -1285,7 +1378,10 @@ def main() -> int:
              scan_rows[(4, 512, 8192, 16)]),
             ("dithered_quantize", QUANT_SOURCE,
              "src/repro/kernels/dithered_quant.py:43", quant3_rows,
-             quant3_rows[((22, 2048, 5632), f32, 255.0)])):
+             quant3_rows[((22, 2048, 5632), f32, 255.0)]),
+            ("linear_scan", LSCAN_SOURCE,
+             "src/repro/kernels/linear_scan.py:63", lscan_rows,
+             lscan_rows[(4, 2560, 2560, False)])):
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname],

@@ -26,12 +26,13 @@ a warm-up step, through ``launch.steps.make_train_step`` with the
 launcher's round inputs: wall and device time per step, idle share,
 launches per step, device time by family and the top kernels.
 
-The serve cell (``--cells serve``) builds falcon-mamba-7b at full width
-and depth (random bf16 weights) and profiles one prefill of 4 x 512
-prompt tokens and then 32 greedy decode steps of the 4 requests, each on
-its own, through the serve steps with the scan on its CUDA kernel: wall
-time, device time by family, idle share and launches per token. Needs a
-card; exits non-zero without one.
+The serve cells (``--cells serve``) build falcon-mamba-7b and then
+recurrentgemma-2b at full width and depth (random bf16 weights) and
+profile one prefill of 4 x 512 (recurrentgemma: 4 x 2,560) prompt tokens
+and then 32 greedy decode steps of the 4 requests, each on its own,
+through the serve steps with the scans on their CUDA kernels: wall time,
+device time by family, idle share and launches per token. Needs a card;
+exits non-zero without one.
 """
 import argparse
 import json
@@ -43,6 +44,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (                      # first match wins, on the kernel's name
     ("selective_scan", ("selective_scan",)),
+    ("linear_scan", ("linear_scan",)),
     ("dithered_quantize", ("dithered_quantize_kernel",)),
     ("ota_combine", ("ota_combine",)),
     ("dithered_quantize_rows", ("dithered_quantize",)),
@@ -116,14 +118,14 @@ def profile_cell(trainer, agg, rounds, **run):
                 by_family.items(), key=lambda kv: -kv[1])})
 
 
-def profile_serve(batch=4, prompt_len=512, tokens=32):
-    """falcon-mamba-7b's prefill and decode, each profiled on its own."""
+def profile_serve(arch, prompt_len, batch=4, tokens=32):
+    """A model's prefill and decode, each profiled on its own."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import SERVE_FLAGS
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import make_batch, make_model
-    cfg = get_config("falcon-mamba-7b")
+    cfg = get_config(arch)
     model = make_model(cfg, seed=0)
     cache_len = prompt_len + tokens + 1
     prefill = make_prefill_step(model, batch=batch, seq=prompt_len,
@@ -149,9 +151,9 @@ def profile_serve(batch=4, prompt_len=512, tokens=32):
     run_decode(2)
     cells = []
     for label, fn, n_tok in (
-            (f"falcon-mamba-7b prefill {batch}x{prompt_len}", run_prefill,
+            (f"{arch} prefill {batch}x{prompt_len}", run_prefill,
              batch * prompt_len),
-            (f"falcon-mamba-7b decode {batch}x{tokens}",
+            (f"{arch} decode {batch}x{tokens}",
              lambda: run_decode(tokens), batch * tokens)):
         per_kernel = {}
         by_family, launches, busy_us, wall = profiled(fn, per_kernel)
@@ -236,8 +238,10 @@ def main() -> int:
     if args.cells in ("all", "fl"):
         profile_fl(args.rounds)
     if args.cells in ("all", "serve"):
-        for cell in profile_serve():
-            print(json.dumps(cell), flush=True)
+        for arch, prompt_len in (("falcon-mamba-7b", 512),
+                                 ("recurrentgemma-2b", 2560)):
+            for cell in profile_serve(arch, prompt_len):
+                print(json.dumps(cell), flush=True)
     if args.cells in ("all", "train"):
         for cell in profile_train():
             print(json.dumps(cell), flush=True)

@@ -2,8 +2,9 @@
 ``repro.configs``).
 
 The ten configs are the reference's, as pure data; each cites its source
-(HF model card or arXiv). The port builds a model only for
-``layer_pattern == ("mamba",)`` so far (falcon-mamba-7b); the others raise
+(HF model card or arXiv). The port builds the Mamba, dense and RG-LRU
+models from them (falcon-mamba-7b, the llama family, qwen3-8b, gemma3-4b,
+recurrentgemma-2b); the MoE, audio and VLM configs raise
 ``NotImplementedError`` when a model is built from them.
 """
 from __future__ import annotations

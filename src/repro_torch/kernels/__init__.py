@@ -10,12 +10,15 @@ versions and their callers:
   row_reduce      — per-row (max |g|, sum g^2) in a wider accumulator, the
                     device scores of the norm-based digital baselines
   selective_scan  — the fused Mamba-1 selective scan of a model's prefill
+  linear_scan     — the first-order linear scan h_t = a_t h_{t-1} + b_t,
+                    the RG-LRU recurrence of a model's prefill
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the sources
 build with nvcc at first use (``build.py``).
 """
 from . import ops, ref
 from .dithered_quant import dithered_quantize, dithered_quantize_rows
+from .linear_scan import linear_scan
 from .ota_combine import ota_combine
 from .payload import (packed_weighted_sum, quantize_pack_rows,
                       unpack_dequant_rows)
@@ -24,7 +27,7 @@ from .selective_scan import selective_scan
 
 KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
            unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq,
-           selective_scan, dithered_quantize)
+           selective_scan, dithered_quantize, linear_scan)
 
 
 def launch_counts() -> dict:

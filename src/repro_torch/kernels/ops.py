@@ -18,6 +18,7 @@ from ..core import rngstream
 from . import payload, ref, row_reduce
 from .dithered_quant import dithered_quantize_rows
 from .dithered_quant import dithered_quantize as dithered_quantize_kernel
+from .linear_scan import linear_scan as linear_scan_kernel
 from .ota_combine import ota_combine as ota_combine_kernel
 from .payload import CODE_BITS_CHOICES
 from .selective_scan import selective_scan as selective_scan_kernel
@@ -248,3 +249,17 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
     if use_kernel:
         return selective_scan_kernel(*ins)
     return ref.selective_scan_ref(*ins)
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                *, use_kernel: bool = True):
+    """h_t = a_t h_{t-1} + b_t over axis 1. a, b: (B, S, D); h0: (B, D);
+    all f32. Returns (h_all, h_last). The kernel takes the layout as it is:
+    the reference pads S to 256 and D to 128 with a = 1, b = 0 for its
+    block shape, which changes nothing, so nothing is padded here.
+    ``use_kernel=False`` runs its plain version, which gives the same
+    bits."""
+    ins = [t.contiguous() for t in (a, b, h0)]
+    if use_kernel:
+        return linear_scan_kernel(*ins)
+    return ref.linear_scan_ref(*ins)

@@ -229,3 +229,20 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
             y = y + p[..., j]
         ys.append(y)
     return torch.cat(ys, dim=1), h.clone()
+
+
+# ------------------------------------------------------------ linear scan
+
+def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t along axis 1, in the kernel's order: one
+    step at a time from h0, the product and the sum each rounded on its
+    own (the kernel's ``__fmul_rn`` then ``__fadd_rn``, no fused
+    multiply-add). a, b: (B, S, D), S >= 1; h0: (B, D). Returns (h_all
+    (B, S, D), h_last (B, D)), both in a's dtype."""
+    hs = torch.empty_like(a)
+    h = h0
+    for t in range(a.shape[1]):
+        torch.add(a[:, t] * h, b[:, t], out=hs[:, t])
+        h = hs[:, t]
+    return hs, h.clone()

@@ -3,10 +3,12 @@ with temperature sampling (counterpart of ``examples/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tokens 32
 
-The CLI serves the reference's ``scaled_down()`` sizes of ``--arch`` with
-random weights, the Mamba scan on the hand-written kernel
-(``mamba_kernel``), on the card unless ``--device cpu``. :func:`serve` is
-the request loop for any model already built, at any width.
+The CLI serves the reference's ``scaled_down()`` sizes of ``--arch``
+(falcon-mamba-7b by default; recurrentgemma-2b and the dense models too)
+with random weights, the Mamba scan and the RG-LRU recurrence on their
+hand-written kernels (``mamba_kernel``, ``rglru_kernel``), on the card
+unless ``--device cpu``. :func:`serve` is the request loop for any model
+already built, at any width.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from ..configs import ARCH_IDS, get_config
 from ..models import effective_seq, make_batch, make_model
 from .steps import make_decode_step, make_prefill_step
 
-#: the serve path's flags: the Mamba scan goes to the CUDA kernel
-SERVE_FLAGS = {"mamba_kernel": True}
+#: the serve path's flags: the Mamba scan and the RG-LRU recurrence go to
+#: their CUDA kernels
+SERVE_FLAGS = {"mamba_kernel": True, "rglru_kernel": True}
 
 
 @dataclasses.dataclass

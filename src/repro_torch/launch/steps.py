@@ -55,8 +55,10 @@ def make_train_step(model: Transformer, *, n_clients: int = 1,
     backward pass (``fl["weight"][m]``: grad(w loss) = w grad), the
     gradients are viewed as the reference's stacked leaves and aggregated
     by :func:`wireless_psum` with weight 1, then one SGD step (in f32, cast
-    back to the parameters' dtype). ``key`` is a threefry key pair
-    (``rngstream.prng_key(t)`` for the reference's ``jax.random.key(t)``).
+    back to the parameters' dtype) from zero momentum, as the reference's
+    step takes it: ``sgd.momentum`` changes nothing (ROADMAP Queue 3).
+    ``key`` is a threefry key pair (``rngstream.prng_key(t)`` for the
+    reference's ``jax.random.key(t)``).
     """
     if batch % n_clients:
         raise ValueError(f"batch {batch} does not split over {n_clients} "

@@ -146,7 +146,10 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=6)
     ap.add_argument("--vocab", type=int, default=1024)
     ap.add_argument("--eta", type=float, default=1.0)
-    ap.add_argument("--momentum", type=float, default=0.0)
+    ap.add_argument("--momentum", type=float, default=0.0,
+                    help="inert, as in the reference: each train step "
+                         "starts SGD from zero momentum, so any value "
+                         "trains as 0")
     ap.add_argument("--g-max", type=float, default=10.0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)

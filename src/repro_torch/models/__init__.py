@@ -1,5 +1,6 @@
-"""The model zoo (counterpart of ``repro.models``): Mamba-1 LMs, and dense
-llama-style LMs in train mode."""
+"""The model zoo (counterpart of ``repro.models``): Mamba-1 LMs, dense
+llama-style LMs (global and local attention) and the RG-LRU hybrid, in
+train, prefill and decode modes."""
 from .common import ModelConfig
 from .transformer import Transformer
 from .api import (make_model, make_batch, loss_fn, prefill, decode_step,

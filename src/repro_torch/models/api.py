@@ -78,15 +78,19 @@ def loss_fn(model: Transformer, batch: dict, flags: Optional[dict] = None):
 @torch.no_grad()
 def prefill(model: Transformer, batch: dict, cache_len: int,
             flags: Optional[dict] = None):
-    """Process the prompt, build the state cache, return the last logits.
+    """Process the prompt, build the KV / state cache, return the last
+    logits. Every attention layer's cache comes out ``cache_len`` long,
+    as the reference's does (``flags["cache_len"]``).
 
     Returns (logits_last (B, V), caches, memory); ``memory`` (the
     encoder's output) is None for decoder-only models.
     """
     x, positions, _ = _embed_inputs(model, batch)
     caches = model.init_cache(x.shape[0], cache_len)
+    fl = dict(flags or {})
+    fl["cache_len"] = cache_len
     hidden, caches = model(x, positions, mode="prefill", caches=caches,
-                           flags=flags)
+                           flags=fl)
     logits = model.logits(hidden[:, -1:, :])[:, 0]
     return logits, caches, None
 

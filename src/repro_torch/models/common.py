@@ -1,5 +1,6 @@
 """Shared model primitives: the config, the parameter initialiser, the
-RMS norm, RoPE and SwiGLU (counterparts of ``repro.models.common``).
+RMS norm, RoPE, SwiGLU and the activations (counterparts of
+``repro.models.common``).
 
 Parameters live in ``nn.Module``s under the reference's names, so a
 reference leaf ``groups/b0/mamba/in_proj`` (layer axis first) is the
@@ -106,9 +107,13 @@ class ModelConfig:
 class ParamInit:
     """Draws parameters as ``repro.models.common.ParamBuilder.param`` does:
     ``normal`` at 1/sqrt(shape[0]) unless a scale is given (drawn in f32,
-    then cast), ``zeros``, ``ones``, and ``ssm_a`` = log(1..n) per channel
-    computed in the parameter dtype. ``generator=None`` leaves every
-    parameter uninitialised (``torch.empty``), for weights loaded after.
+    then cast), ``zeros``, ``ones``, ``ssm_a`` = log(1..n) per channel
+    computed in the parameter dtype, and the RG-LRU's ``lru_a`` =
+    log(exp(-8 log u) - 1) for u uniform in [0.9, 0.999) (drawn in f32,
+    cast, then computed in the parameter dtype: in bf16 a u that rounds to
+    1 gives -inf, as in the reference, and a = 1 on that channel).
+    ``generator=None`` leaves every parameter uninitialised
+    (``torch.empty``), for weights loaded after.
     """
 
     def __init__(self, dtype, device, generator: Optional[torch.Generator]):
@@ -133,6 +138,11 @@ class ParamInit:
         if init == "ssm_a":
             n = shape[-1]
             return torch.log(torch.arange(1, n + 1, **kw).repeat(shape[0], 1))
+        if init == "lru_a":
+            u = torch.rand(shape, generator=self.generator,
+                           dtype=torch.float32, device=self.device)
+            u = (u * (0.999 - 0.9) + 0.9).to(self.dtype)
+            return torch.log(torch.exp(-torch.log(u) * 8.0) - 1.0)
         raise ValueError(init)
 
 
@@ -162,6 +172,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x), as ``jax.nn.silu`` writes it."""
     return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, as ``jax.nn.gelu``'s default (``approximate=True``);
+    torch's default is the erf form."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,40 @@
-"""Model blocks (counterpart of ``repro.models.layers``): attention (train
-mode), the SwiGLU MLP and Mamba-1.
+"""Model blocks (counterpart of ``repro.models.layers``): attention, the
+SwiGLU MLP, Mamba-1 and the RG-LRU.
 
 Conventions as the reference's: x is (B, S, d); decode calls use S == 1
-plus a cache; a Mamba cache is ``{"conv": (B, K-1, d_inner)`` in the model
-dtype, ``"h": (B, d_inner, n)`` in f32``}``. Attention is plain torch
-products op for op as the reference's ``_attend_einsum`` (scores in f32,
-the NEG_INF mask, softmax, probabilities back in the model dtype): it is
-jnp code there, not a Pallas kernel. Its prefill and decode modes (the KV
-ring buffer) are not ported yet and raise. ``flags`` holds runtime
-options of the Mamba block:
+plus a cache. An attention cache is a ring buffer ``{"k", "v": (B, L,
+KV, hd)`` in the model dtype, ``"pos": (B, L)`` int32``}`` holding each
+slot's absolute position (-1 when empty), so decode writes position p to
+slot p % L and masks by the stored positions; a Mamba cache is
+``{"conv": (B, K-1, d_inner)`` in the model dtype, ``"h": (B, d_inner,
+n)`` in f32``}``; an RG-LRU cache ``{"conv": (B, K-1, w)``, ``"h": (B,
+w)`` in f32``}``. Caches are not updated in place: each call returns new
+tensors, as the reference's functional updates do. Attention is plain
+torch products op for op as the reference's ``_attend_einsum`` (scores
+in f32, the NEG_INF mask, softmax, probabilities back in the model
+dtype): it is jnp code there, not a Pallas kernel. ``flags`` holds
+runtime options:
 
-  * ``mamba_kernel`` — the scan goes to ``kernels.ops.selective_scan``
+  * ``cache_len`` — set by ``api.prefill``: the length of the caches a
+    prefill writes;
+  * ``attn_impl`` — ``"einsum"`` (the default); ``"chunked"`` (the
+    reference's online-softmax ``_attend_chunked``) is not ported yet and
+    raises;
+  * ``mamba_kernel`` — the Mamba scan goes to ``kernels.ops.selective_scan``
     (the hand-written CUDA kernel on the card); with ``use_kernel=False``
     there it runs the kernel's plain version, which gives the same bits;
-  * ``mamba_fused`` (default True) — the chunked scan with the
+  * ``mamba_fused`` (default True) — the chunked Mamba scan with the
     C-projection fused into the chunk loop, in plain PyTorch;
   * neither — the materialised route through ``linear_scan_chunked``;
-  * ``scan_chunk`` — the chunk of both plain routes (default 128).
+  * ``rglru_kernel`` (default False) — the RG-LRU recurrence of a prefill
+    goes to ``kernels.ops.linear_scan`` (the CUDA kernel on the card; its
+    plain version under ``use_kernel=False``); otherwise
+    ``linear_scan_chunked``, as the reference runs it;
+  * ``scan_chunk`` — the chunk of the plain chunked routes (default 128
+    for Mamba, 256 for the RG-LRU, the reference's).
 
-MoE and RG-LRU blocks are not ported yet (ROADMAP Queue 1 item 10); their
-entry points raise ``NotImplementedError``.
+MoE blocks are not ported yet (ROADMAP Queue 1 item 10); their entry
+points raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,15 +43,15 @@ from typing import Optional
 import torch
 
 from ..kernels import ops as kops
-from .common import (ModelConfig, ParamInit, ParamModule, rms_norm, rope,
-                     silu, softplus)
+from .common import (ModelConfig, ParamInit, ParamModule, gelu, rms_norm,
+                     rope, silu, softplus)
 
 NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10: the model zoo; "
-              "the port runs Mamba-1 layers, and dense attention and MLP "
-              "layers in train mode)")
-DENSE_SERVE = ("attention with a KV cache (prefill / decode) is not ported "
-               "yet (ROADMAP Queue 1 item 10, step 1: dense serve, the KV "
-               "ring buffer)")
+              "the port runs dense attention and MLP, Mamba-1 and RG-LRU "
+              "layers)")
+CHUNKED_ATTENTION = ("the chunked (online-softmax) attention is not ported "
+                     "yet (ROADMAP Queue 1 item 10, step 1: "
+                     "_attend_chunked); use attn_impl='einsum'")
 NEG_INF = -1e30
 
 
@@ -48,7 +63,6 @@ def _not_ported(block: str):
 
 
 init_moe = moe_apply = _not_ported("the MoE block")
-init_rglru = rglru_apply = _not_ported("the RG-LRU block")
 
 
 # =============================================================== attention
@@ -102,12 +116,19 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor, *, kind: str = "global",
                     cache: Optional[dict] = None, mode: str = "train",
                     flags: Optional[dict] = None):
-    """Causal self-attention over the whole sequence (``mode="train"``),
-    sliding-window for ``kind="local"``. Returns (y, None)."""
-    if mode != "train" or cache is not None:
-        raise NotImplementedError(DENSE_SERVE)
+    """Causal self-attention, sliding-window for ``kind="local"``
+    (``repro.models.layers.attention_apply``). ``mode="train"`` and
+    ``"prefill"`` attend over the whole sequence; a prefill also returns
+    the cache it fills (``flags["cache_len"]`` long, default S). ``"decode"``
+    (S == 1) writes the token's k, v and position into its ring slot of
+    ``cache`` and attends over the cache. Returns (y, new_cache or None).
+    """
+    flags = flags or {}
+    if flags.get("attn_impl", "einsum") != "einsum":
+        raise NotImplementedError(CHUNKED_ATTENTION)
     if kind not in ("global", "local"):
         raise NotImplementedError(f"{kind} attention {NOT_PORTED}")
+    B, S, _ = x.shape
     window = cfg.window_size if kind == "local" else None
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -115,9 +136,57 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
     q, k = _qk_normalize(cfg, p, q, k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode attends one token against a cache")
+        L = cache["k"].shape[1]
+        slot = positions[:, 0].long() % L                 # ring slot per row
+        bidx = torch.arange(B, device=x.device)
+        ck = cache["k"].index_put((bidx, slot), k[:, 0])
+        cv = cache["v"].index_put((bidx, slot), v[:, 0])
+        cpos = cache["pos"].index_put((bidx, slot),
+                                      positions[:, 0].to(torch.int32))
+        out = _attend_einsum(q, ck, cv, _causal_mask(positions, cpos, window))
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return y, {"k": ck, "v": cv, "pos": cpos}
+
     mask = _causal_mask(positions, positions, window)
     out = _attend_einsum(q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if mode != "prefill":
+        return y, None
+    pos = positions.to(torch.int32)
+    cache_len = flags.get("cache_len", S)
+    if cache_len >= S:
+        # the reference pads every layer to the model-wide cache_len, a
+        # local layer's too (ROADMAP Queue 3)
+        pad = cache_len - S
+        ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        cpos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+    else:
+        # only the last cache_len keys, each in its ring slot
+        # (pos % cache_len), so that decode's writes line up
+        ck0, cv0 = k[:, -cache_len:], v[:, -cache_len:]
+        cpos0 = pos[:, -cache_len:]
+        bidx = torch.arange(B, device=x.device)[:, None]
+        slots = (cpos0 % cache_len).long()
+        ck = torch.zeros_like(ck0).index_put((bidx, slots), ck0)
+        cv = torch.zeros_like(cv0).index_put((bidx, slots), cv0)
+        cpos = torch.full_like(cpos0, -1).index_put((bidx, slots), cpos0)
+    return y, {"k": ck, "v": cv, "pos": cpos}
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                         dtype, device) -> dict:
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros(batch, cache_len, KV, hd, dtype=dtype,
+                             device=device),
+            "v": torch.zeros(batch, cache_len, KV, hd, dtype=dtype,
+                             device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device)}
 
 
 # ==================================================================== MLP
@@ -292,3 +361,67 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
                                 dtype=dtype, device=device),
             "h": torch.zeros(batch, cfg.d_inner, cfg.ssm_state,
                              dtype=torch.float32, device=device)}
+
+
+# ================================================================== RG-LRU
+
+def init_rglru(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
+    d, w, K = cfg.d_model, cfg.lru_dim, cfg.conv1d_width
+    p.param(init, "w_branch", (d, w))
+    p.param(init, "w_gate_branch", (d, w))
+    p.param(init, "conv_w", (K, w), scale=0.5)
+    p.param(init, "conv_b", (w,), init="zeros")
+    p.param(init, "w_a", (w, w), scale=0.02)
+    p.param(init, "b_a", (w,), init="zeros")
+    p.param(init, "w_i", (w, w), scale=0.02)
+    p.param(init, "b_i", (w,), init="zeros")
+    p.param(init, "lambda_p", (w,), init="lru_a")
+    p.param(init, "out_proj", (w, d))
+
+
+def rglru_apply(cfg: ModelConfig, p, x: torch.Tensor,
+                cache: Optional[dict] = None, mode: str = "train",
+                flags: Optional[dict] = None):
+    """Griffin recurrent block: conv1d, then the RG-LRU gated diagonal
+    recurrence h_t = a_t h_{t-1} + b_t in f32
+    (``repro.models.layers.rglru_apply``). Returns (out (B, S, d),
+    {"conv": ..., "h": ...})."""
+    flags = flags or {}
+    B, S, _ = x.shape
+    xb = torch.einsum("bsd,dw->bsw", x, p["w_branch"])
+    gate = gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate_branch"]))
+    conv_state = cache["conv"] if cache is not None else None
+    xb, conv_state = causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
+    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", xb, p["w_a"]) + p["b_a"])
+    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", xb, p["w_i"]) + p["b_i"])
+    log_a = -8.0 * softplus(p["lambda_p"].float()) * r.float()
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9))
+    b = mult * (i * xb).float()
+    h0 = (cache["h"] if cache is not None
+          else x.new_zeros(B, cfg.lru_dim, dtype=torch.float32))
+    if mode == "decode" and S == 1:
+        h_last = a[:, 0] * h0 + b[:, 0]
+        h_all = h_last[:, None]
+    elif flags.get("rglru_kernel", False):
+        if a.requires_grad or b.requires_grad:
+            raise NotImplementedError(
+                "the linear-scan kernel has no backward (nor has the "
+                "reference's); train RG-LRU layers on the chunked route "
+                "(rglru_kernel off), or serve under torch.no_grad()")
+        h_all, h_last = kops.linear_scan(
+            a.contiguous(), b.contiguous(), h0.contiguous(),
+            use_kernel=flags.get("use_kernel", True))
+    else:
+        h_all, h_last = linear_scan_chunked(
+            a, b, h0, chunk=flags.get("scan_chunk", 256))
+    y = h_all.to(x.dtype) * gate
+    out = torch.einsum("bsw,wd->bsd", y, p["out_proj"])
+    return out, {"conv": conv_state, "h": h_last}
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    return {"conv": torch.zeros(batch, cfg.conv1d_width - 1, cfg.lru_dim,
+                                dtype=dtype, device=device),
+            "h": torch.zeros(batch, cfg.lru_dim, dtype=torch.float32,
+                             device=device)}

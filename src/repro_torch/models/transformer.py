@@ -6,15 +6,18 @@ them under ``jax.lax.scan``; here each layer is one entry of an
 of the port is the reference's group ``i // len(pattern)``, block
 ``i % len(pattern)`` (then the tail). Parameter names follow the
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` and
-``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>`` or ``layers.<i>.attn.<leaf>``,
-``layers.<i>.ln2``, ``layers.<i>.mlp.<leaf>``. Caches are a list with one
-dict per layer. ``repro_torch.interop`` maps these names to the
-reference's stacked leaves and back.
+``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>``, ``layers.<i>.attn.<leaf>``
+or ``layers.<i>.rec.<leaf>``, ``layers.<i>.ln2``, ``layers.<i>.mlp.<leaf>``.
+Caches are a list with one dict per layer, keyed as the reference's:
+``{"attn": ...}``, ``{"mamba": ...}`` or ``{"rec": ...}``.
+``repro_torch.interop`` maps these names to the reference's stacked leaves
+and back.
 
-Mamba-1 layers (falcon-mamba) serve and train; dense layers (global and
-local attention with the SwiGLU MLP: the llama family, gemma3's pattern)
-run in train mode. MoE and RG-LRU layers, encoder-decoders and VLMs raise
-``NotImplementedError`` naming their ROADMAP item.
+Mamba-1 layers (falcon-mamba), dense layers (global and local attention
+with the SwiGLU MLP: the llama family, gemma3's pattern) and RG-LRU
+layers (recurrentgemma's pattern) serve and train. MoE layers,
+encoder-decoders and VLMs raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ class Layer(ParamModule):
             self.mamba = ParamModule()
             L.init_mamba(init, self.mamba, cfg)
         elif kind == "rglru":
-            L.init_rglru(init, self, cfg)
+            self.rec = ParamModule()
+            L.init_rglru(init, self.rec, cfg)
         else:
             raise ValueError(kind)
         if kind != "mamba" and cfg.d_ff > 0:
@@ -62,11 +66,18 @@ class Layer(ParamModule):
                 cache=None if cache is None else cache["mamba"], mode=mode,
                 flags=flags)
             new_cache = {"mamba": nc} if mode != "train" else None
+        elif self.kind == "rglru":
+            y, nc = L.rglru_apply(
+                cfg, self.rec, h,
+                cache=None if cache is None else cache["rec"], mode=mode,
+                flags=flags)
+            new_cache = {"rec": nc} if mode != "train" else None
         else:
-            y, _ = L.attention_apply(cfg, self.attn, h, positions,
-                                     kind=self.kind, cache=cache, mode=mode,
-                                     flags=flags)
-            new_cache = None
+            y, nc = L.attention_apply(
+                cfg, self.attn, h, positions, kind=self.kind,
+                cache=None if cache is None else cache["attn"], mode=mode,
+                flags=flags)
+            new_cache = None if nc is None else {"attn": nc}
         x = x + y
         if hasattr(self, "ln2"):
             x = x + L.mlp_apply(cfg, self.mlp,
@@ -104,20 +115,31 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
-        """One ``{"mamba": {"conv", "h"}}`` per layer (a Mamba cache does
-        not grow with ``cache_len``); attention layers have no cache yet."""
-        if any(layer.kind != "mamba" for layer in self.layers):
-            raise NotImplementedError(L.DENSE_SERVE)
-        dtype = dtype or self.cfg.dtype
-        return [{"mamba": L.init_mamba_cache(self.cfg, batch, dtype,
-                                             self.device)}
-                for _ in self.layers]
+        """One cache per layer (``_init_layer_cache``): an attention ring
+        buffer of ``cache_len`` slots (a local layer's of
+        ``min(cache_len, window_size)``), or a Mamba or RG-LRU state, which
+        does not grow with ``cache_len``."""
+        cfg, dev = self.cfg, self.device
+        dtype = dtype or cfg.dtype
+        caches = []
+        for layer in self.layers:
+            if layer.kind == "mamba":
+                c = {"mamba": L.init_mamba_cache(cfg, batch, dtype, dev)}
+            elif layer.kind == "rglru":
+                c = {"rec": L.init_rglru_cache(cfg, batch, dtype, dev)}
+            else:
+                n = (min(cache_len, cfg.window_size) if layer.kind == "local"
+                     else cache_len)
+                c = {"attn": L.init_attention_cache(cfg, batch, n, dtype,
+                                                    dev)}
+            caches.append(c)
+        return caches
 
     def forward(self, x, positions=None, *, mode="train", caches=None,
                 flags=None):
         """Backbone over embeddings x (B, S, d) at ``positions`` (B, S)
-        (attention layers; Mamba layers read none). Returns (hidden,
-        caches)."""
+        (attention layers; Mamba and RG-LRU layers read none). Returns
+        (hidden, caches)."""
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
             x, nc = layer(self.cfg, x, positions,

@@ -109,24 +109,39 @@ def test_full_model_parameter_count(ref):
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
 def test_other_kinds_raise_not_implemented(arch):
     """What the port does not run raises NotImplementedError naming its
-    ROADMAP item: MoE, RG-LRU and the front ends when the model is built;
-    dense attention (which builds and trains) when it is served, for its
-    KV cache is not ported."""
+    ROADMAP item: MoE and the front ends when the model is built; the
+    dense and RG-LRU models (which build, train and serve) when served
+    with the chunked attention, which is not ported."""
     cfg = get_config(arch).scaled_down()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         model = make_model(cfg, device="cpu")
-        prefill(model, make_batch(cfg, 1, 4, torch.Generator()), 8)
+        prefill(model, make_batch(cfg, 1, 4, torch.Generator()), 8,
+                {"attn_impl": "chunked"})
 
 
-# attention is ported for training; only its cached modes are not
-_CACHED = {"attention_apply": dict(positions=None, mode="prefill")}
+def _unported_call(block):
+    """(a call of ``block`` on what the port does not run, the message it
+    raises): MoE at all; attention's chunked implementation; the RG-LRU's
+    kernel route under autograd (the kernel has no backward)."""
+    if block == "rglru_apply":
+        model = make_model(get_config("recurrentgemma-2b").scaled_down(),
+                           device="cpu")
+        x = torch.zeros(1, 4, model.cfg.d_model)
+        return (lambda: L.rglru_apply(model.cfg, model.layers[0].rec, x,
+                                      flags={"rglru_kernel": True}),
+                "no backward")
+    kw = {"attention_apply": dict(positions=None,
+                                  flags={"attn_impl": "chunked"})}
+    return (lambda: getattr(L, block)(None, None, None, **kw.get(block, {})),
+            "ROADMAP")
 
 
 @pytest.mark.parametrize("block", ["attention_apply", "init_moe",
                                    "moe_apply", "rglru_apply"])
 def test_unported_blocks_raise(block):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(L, block)(None, None, None, **_CACHED.get(block, {}))
+    call, match = _unported_call(block)
+    with pytest.raises(NotImplementedError, match=match):
+        call()
 
 
 def test_default_device_is_the_card():

@@ -209,6 +209,72 @@ def test_train_step_checks_and_counts(ref1):
     assert all(p.grad is None for p in model.parameters())
 
 
+def _ref_two_steps(ref, inp, agg, momentum):
+    """Two reference train steps over one client from the weights of key
+    0, at the given SGD momentum: (losses, final parameters as numpy)."""
+    jax, jnp = ref.jax, ref.jax.numpy
+    rmodel = ref.api.make_model(ref.common.ModelConfig(**CFG,
+                                                       dtype=jnp.float32))
+    params = rmodel.init(jax.random.key(0))
+    mesh = ref.mesh.make_host_mesh(model_axis=1, data_axis=1)
+    sb = ref.steps.make_train_step(
+        rmodel, mesh, aggregator=agg,
+        sgd=ref.sgd.SGDConfig(eta=ETA, momentum=momentum), batch=BATCH,
+        seq=SEQ)
+    f = jax.jit(sb.fn, in_shardings=sb.in_shardings,
+                out_shardings=sb.out_shardings)
+    losses = []
+    for t in range(2):
+        fl = ref.steps.fl_round_arrays(mesh, gammas=inp["gammas"],
+                                       chis=inp["chis"][t], alpha=2.0,
+                                       noise_scale=1e-3, levels=15.0)
+        params, loss = f(params, {"tokens": jnp.asarray(inp["tokens"][t])},
+                         fl, jax.random.key(t))
+        losses.append(float(loss))
+    return losses, jax.tree.map(np.asarray, params)
+
+
+def _port_two_steps(inp, directory, agg, momentum):
+    model = _port_model(directory)
+    step = make_train_step(model, n_clients=1, aggregator=agg,
+                           sgd=SGDConfig(eta=ETA, momentum=momentum),
+                           batch=BATCH, seq=SEQ)
+    losses = []
+    for t in range(2):
+        fl = fl_round_arrays(1, gammas=inp["gammas"], chis=inp["chis"][t],
+                             alpha=2.0, noise_scale=1e-3, levels=15.0)
+        losses.append(float(step(
+            {"tokens": torch.from_numpy(inp["tokens"][t]).long()}, fl,
+            rngstream.prng_key(t))))
+    return losses, model.state_dict()
+
+
+def _params_close(got: dict, want: dict):
+    scale = max(float(v.abs().max()) for v in want.values())
+    gap = max(float((got[k] - want[k]).abs().max()) for k in want)
+    assert gap <= 1e-5 * scale, (gap, scale)
+
+
+@pytest.mark.parametrize("agg", ["ideal", "ota"])
+def test_momentum_is_inert_in_both_packages(ref, ref1, agg):
+    """ROADMAP Queue 3: each package's train step starts SGD from zero
+    momentum every step, so two steps at momentum 0.9 train as at 0 in
+    both (the port's bit for bit), and the two packages agree at 0.9
+    within this file's train-step tolerance."""
+    inp, d, _ = ref1
+    r_losses9, r_params9 = _ref_two_steps(ref, inp, agg, 0.9)
+    r_losses0, r_params0 = _ref_two_steps(ref, inp, agg, 0.0)
+    np.testing.assert_allclose(r_losses9, r_losses0, rtol=1e-5)
+    want9 = interop.model_state(r_params9)
+    _params_close(interop.model_state(r_params0), want9)
+    losses9, state9 = _port_two_steps(inp, d, agg, 0.9)
+    losses0, state0 = _port_two_steps(inp, d, agg, 0.0)
+    assert losses9 == losses0
+    assert all(torch.equal(state9[k], state0[k]) for k in state0)
+    np.testing.assert_allclose(losses9, r_losses9, rtol=1e-5)
+    _params_close(state9, want9)
+
+
 # ------------------------------------------------------ host-side pieces
 
 def test_fl_round_arrays_match_reference(ref):
