@@ -13,12 +13,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. kernels — each of the nine kernels against its plain PyTorch version
    on the card, bit-equal, at the main path's shapes and at large ones,
    with degenerate and ragged rows (the whole-tensor quantizer also on one
-   tensor of more than 2^31 entries); the payload decoder ``unpack(pack(g))``
-   also bit-equal to the two-step quantizer kernel on the same inputs;
-   device times of kernel, plain version and the one PyTorch call
-   computing the same function (where there is one), beside the least
-   time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate, whichever is larger);
+   tensor of more than 2^31 entries; the scans also at the edges of their
+   tiles: S = 1, a step short of a tile and past one or three, D = 33,
+   and state sizes that do not divide among the selective scan's warps);
+   the payload decoder ``unpack(pack(g))`` also bit-equal to the two-step
+   quantizer kernel on the same inputs; device times of kernel, plain
+   version and the one PyTorch call computing the same function (where
+   there is one), beside the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate, whichever is larger); the
+   SASS instructions a step in each scan's unrolled full tile, one body
+   for each warp role, and the rest of its tile loop (``cuobjdump``, "not
+   measured" where the toolkit has none); from those and the SM clock
+   read while it runs, the selective scan's issue-slot floor as a range;
 4. main path — the paper's experiments at full width through the port's
    ``FLTrainer`` on the card, parameters from the closed-form design
    anchors:
@@ -346,12 +352,10 @@ def reduce_case(rows, d, gdt, seed):
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 
 
-def scan_case(B, S, D, n, seed):
-    """The selective scan against its plain version on the reference
-    test's distributions (``tests/test_kernels.py``): bit-equal y and
-    h_last."""
+def scan_inputs(B, S, D, n, seed):
+    """The reference test's distributions (``tests/test_kernels.py``), made
+    on the card from a seed: (dt, x, bm, cm, a_w, h0)."""
     import torch
-    from repro_torch.kernels import ref, selective_scan
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=gen, device="cuda")
     dt = torch.rand(B, S, D, **kw) * 0.199 + 0.001
@@ -360,7 +364,15 @@ def scan_case(B, S, D, n, seed):
     cm = torch.randn(B, S, n, **kw) * 0.5
     a_w = -torch.exp(torch.randn(D, n, **kw) * 0.3)
     h0 = torch.randn(B, D, n, **kw) * 0.1
-    ins = (dt, x, bm, cm, a_w, h0)
+    return dt, x, bm, cm, a_w, h0
+
+
+def scan_case(B, S, D, n, seed, timed=True):
+    """The selective scan against its plain version on the reference
+    test's distributions: bit-equal y and h_last."""
+    import torch
+    from repro_torch.kernels import ref, selective_scan
+    ins = scan_inputs(B, S, D, n, seed)
     y, h = selective_scan(*ins)
     y_p, h_p = ref.selective_scan_ref(*ins)
     torch.cuda.synchronize()
@@ -374,20 +386,21 @@ def scan_case(B, S, D, n, seed):
     # each input read once, y and h_last written once; per (b, t, d, j)
     # one exp (counted as one operation) and 7 multiplies and adds
     nbytes = 4 * (3 * B * S * D + 2 * B * S * n + D * n + 2 * B * D * n)
-    big = nbytes > 64e6
-    ms = device_ms(lambda: selective_scan(*ins), 5 if big else 20)
-    plain_ms = device_ms(lambda: ref.selective_scan_ref(*ins), 2 if big else 5,
-                         reps=3)
     b_ms, b_by = bound(nbytes, 8 * B * S * D * n, "float32")
-    return dict(shape=[B, S, D, n], dtype="float32", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+    out = dict(shape=[B, S, D, n], dtype="float32", max_abs_err=err,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    if timed:
+        big = nbytes > 64e6
+        out["ms"] = device_ms(lambda: selective_scan(*ins), 5 if big else 20)
+        out["plain_ms"] = device_ms(lambda: ref.selective_scan_ref(*ins),
+                                    2 if big else 5, reps=3)
+    return out
 
 
 LSCAN_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
 
 
-def lscan_case(B, S, D, seed, identity=False):
+def lscan_case(B, S, D, seed, identity=False, timed=True):
     """The linear scan against its plain version on the reference test's
     distributions (``tests/test_kernels.py``: a uniform in [0.3, 0.999),
     b normal x 0.1, h0 normal), or on identity dynamics (a = 1, b = 0:
@@ -418,13 +431,126 @@ def lscan_case(B, S, D, seed, identity=False):
     # a and b read once, h_all written once, h0 and h_last; a multiply
     # and an add a step
     nbytes = 4 * (3 * B * S * D + 2 * B * D)
-    ms = device_ms(lambda: linear_scan(a, b, h0), 5 if nbytes > 64e6 else 20)
-    plain_ms = device_ms(lambda: ref.linear_scan_ref(a, b, h0),
-                         1 if S >= 2048 else 3, reps=3)
     b_ms, b_by = bound(nbytes, 2 * B * S * D, "float32")
-    return dict(shape=[B, S, D], dtype="float32", identity=identity,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+    out = dict(shape=[B, S, D], dtype="float32", identity=identity,
+               max_abs_err=err, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by)
+    if timed:
+        out["ms"] = device_ms(lambda: linear_scan(a, b, h0),
+                              5 if nbytes > 64e6 else 20)
+        out["plain_ms"] = device_ms(lambda: ref.linear_scan_ref(a, b, h0),
+                                    1 if S >= 2048 else 3, reps=3)
+    return out
+
+
+SASS_BRANCH = r"(@!?U?P\w+\s+)?(BRA|EXIT|RET)\b(?:.*?0x([0-9a-f]+))?"
+
+
+def sass_bodies(lib: Path, function: str, marker: str):
+    """The unrolled bodies of a kernel's full tile in SASS, read with
+    cuobjdump from the built library: in ``function`` (a substring of its
+    mangled name), the straight-line stretches (a forward branch over
+    straight code, a skipped store, does not end one) that hold the most
+    ``marker`` instructions, one a step and state, so one body for each
+    role a warp can take. Returns each body's instructions over its
+    markers, and the other instructions of the tile loop (the outermost
+    backward branch's span, less every stretch holding a marker): what a
+    tile can add to a body at most (the wait, the barrier, the copies,
+    the dispatch). "not measured" where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return "not measured"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    found = [part for part in out.stdout.split("Function : ")[1:]
+             if function in part.split(None, 1)[0]]
+    check(len(found) == 1, f"{len(found)} SASS functions match {function}")
+    ins = [(int(m[1], 16), m[2]) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", found[0])]
+    match = [re.match(SASS_BRANCH, text) for _, text in ins]
+    after, nxt = [0.0] * len(ins), float("inf")
+    for i in reversed(range(len(ins))):      # the next branch's address
+        after[i] = nxt
+        if match[i]:
+            nxt = ins[i][0]
+    stretches, cur = [], []
+    for i, m in enumerate(match):
+        cur.append(i)
+        if m and not (m[1] and m[3] and ins[i][0] < int(m[3], 16) <= after[i]):
+            stretches.append(cur)
+            cur = []
+    stretches.append(cur)
+    marks = [sum(marker in ins[i][1] for i in st) for st in stretches]
+    top = max(marks)
+    check(top > 0, f"no {marker} in {function}'s SASS")
+    bodies = [len(st) for st, k in zip(stretches, marks) if k == top]
+    lo, hi = max(((int(m[3], 16), ins[i][0]) for i, m in enumerate(match)
+                  if m and m[3] and int(m[3], 16) < ins[i][0]),
+                 key=lambda span: span[1] - span[0])
+    marked = {i for st, k in zip(stretches, marks) if k for i in st}
+    loop_other = sum(lo <= a <= hi and i not in marked
+                     for i, (a, _) in enumerate(ins))
+    return dict(steps_a_body=top, bodies=bodies,
+                per_step=[b / top for b in bodies], loop_other=loop_other)
+
+
+def issue_floor(shape, row, bodies) -> dict:
+    """An estimate of the selective scan's floor in issue slots at
+    ``shape``: its warp-instructions over four a clock on every SM, at the
+    SM clock read while it runs. The low end counts only the bodies (their
+    mean an element), the high end the largest body and all the tile
+    loop's other code; ``row`` is the kernel case's reading."""
+    import torch
+    from repro_torch.kernels import selective_scan
+    if bodies == "not measured":
+        return dict(shape=list(shape), floor_ms="not measured")
+    ins = scan_inputs(*shape, seed=sum(shape))
+    clock = sm_clock_under(lambda: selective_scan(*ins), 10000)
+    mhz = float(clock["clocks_sm"].split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, S, D, n = shape
+    per_element = (sum(bodies["per_step"]) / len(bodies["per_step"]),
+                   (max(bodies["bodies"]) + bodies["loop_other"])
+                   / bodies["steps_a_body"])
+    floor_ms = [B * S * D * n / 32 * k / (4 * sms * mhz * 1e6) * 1e3
+                for k in per_element]
+    return dict(shape=list(shape), ms=row["ms"], sms=sms, **clock,
+                instructions_an_element=per_element, floor_ms=floor_ms,
+                share_of_floor=[f / row["ms"] for f in floor_ms])
+
+
+def sm_clock_under(fn, calls: int) -> dict:
+    """nvidia-smi's SM clock and power draw, read while ``calls`` calls of
+    ``fn`` run back to back on the card."""
+    import threading
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    got = {}
+
+    def read():
+        time.sleep(0.3)
+        got["smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        got["done"] = torch.cuda.current_stream().query()
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    for _ in range(calls):
+        fn()
+    reader.join()
+    torch.cuda.synchronize()
+    check("smi" in got and got["smi"], "nvidia-smi gave no clock")
+    check(not got["done"], "the card went idle before the clock was read")
+    sm, sm_max, power = (v.strip() for v in got["smi"].split(","))
+    return dict(clocks_sm=sm, clocks_max_sm=sm_max, power_draw=power)
 
 
 # --------------------------------------------------------------- main path
@@ -1149,6 +1275,16 @@ def main() -> int:
                   "quantize_pack_rows", "unpack_dequant_rows",
                   "packed_weighted_sum", "row_maxabs_sumsq",
                   "selective_scan", "dithered_quantize", "linear_scan"])
+    # the scans' full tiles in SASS: instructions per (b, t, d, j) of the
+    # selective scan at n = 16 (one MUFU.EX2 each) in the body of each of
+    # its warps' roles (first, middle, last), per step and channel of the
+    # linear scan (one store each)
+    sass = dict(
+        selective_scan=sass_bodies(build._target("selective_scan")[1],
+                                   "selective_scan_kernelILi16E", "MUFU.EX2"),
+        linear_scan=sass_bodies(build._target("linear_scan")[1],
+                                "linear_scan_kernel", "STG"))
+    emit(phase="sass", **sass)
 
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
@@ -1191,26 +1327,44 @@ def main() -> int:
         reduce_rows[(rows, d, dt)] = r
 
     # the selective scan: falcon-mamba's prefill (4 x 512 tokens, d_inner
-    # 8192, n 16), the reference test's shapes, ragged S and D, n 4/8/16,
-    # and one step
+    # 8192, n 16) and the batch-1 long prompt (timed); the reference
+    # test's shapes, ragged S and D, n 4/8/16, one step; the edges of the
+    # kernel's partitions: n not divisible by its 4 warps (1, 5, 13),
+    # D = 33, S = 1, 7 and 9 (either side of its 8-step tile), 17 and 33
     scan_rows = {}
-    for shape in ((4, 512, 8192, 16), (1, 128, 128, 8), (2, 300, 200, 16),
-                  (2, 64, 100, 4), (1, 37, 129, 16), (2, 300, 129, 8),
-                  (1, 1, 8192, 16)):
-        r = scan_case(*shape, seed=sum(shape))
+    for shape, timed in (((4, 512, 8192, 16), True),
+                         ((1, 4096, 8192, 16), True),
+                         ((1, 128, 128, 8), True), ((2, 300, 200, 16), True),
+                         ((2, 64, 100, 4), True), ((1, 37, 129, 16), True),
+                         ((2, 300, 129, 8), True), ((1, 1, 8192, 16), True),
+                         ((2, 300, 129, 1), False), ((2, 300, 129, 5), False),
+                         ((2, 300, 129, 13), False), ((2, 64, 33, 16), False),
+                         ((2, 1, 33, 5), False), ((2, 7, 100, 16), False),
+                         ((2, 9, 100, 16), False), ((1, 9, 33, 13), False),
+                         ((1, 17, 33, 5), False), ((2, 33, 33, 16), False)):
+        r = scan_case(*shape, seed=sum(shape), timed=timed)
         emit(phase="kernel", kernel="selective_scan", **r)
         scan_rows[shape] = r
+    emit(phase="issue_floor", kernel="selective_scan",
+         **issue_floor((4, 512, 8192, 16), scan_rows[(4, 512, 8192, 16)],
+                       sass["selective_scan"]))
     free_card()
 
     # the linear scan: recurrentgemma-2b's prefill (4 x 2,560 tokens,
-    # lru_width 2560), the reference test's shapes, identity dynamics, and
-    # one long sequence
+    # lru_width 2560), the reference test's shapes, identity dynamics, one
+    # long sequence at batch 1 (timed); the edges of the kernel's ring at
+    # D = 33: S = 1, and 31, 33 and 97 (either side of its 32-step tile,
+    # one past three)
     lscan_rows = {}
-    for shape, identity in (((4, 2560, 2560), False), ((1, 16, 8), False),
-                            ((2, 300, 200), False), ((3, 256, 128), False),
-                            ((2, 1024, 64), False), ((1, 37, 129), False),
-                            ((2, 512, 128), True), ((1, 8192, 2560), False)):
-        r = lscan_case(*shape, seed=sum(shape), identity=identity)
+    for shape, identity, timed in (
+            ((4, 2560, 2560), False, True), ((1, 16, 8), False, True),
+            ((2, 300, 200), False, True), ((3, 256, 128), False, True),
+            ((2, 1024, 64), False, True), ((1, 37, 129), False, True),
+            ((2, 512, 128), True, True), ((1, 8192, 2560), False, True),
+            ((2, 1, 33), False, False), ((2, 31, 33), False, False),
+            ((2, 33, 33), False, False), ((2, 97, 33), False, False)):
+        r = lscan_case(*shape, seed=sum(shape), identity=identity,
+                       timed=timed)
         emit(phase="kernel", kernel="linear_scan", **r)
         lscan_rows[shape + (identity,)] = r
     free_card()

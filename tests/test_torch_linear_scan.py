@@ -10,8 +10,9 @@ oracle (``tests/test_kernels.py``); the Pallas kernel composes the steps
 in a Hillis-Steele order and XLA may contract a product and a sum into an
 FMA, so neither is bit-equal to a sequential loop. The order the CUDA
 kernel repeats, one step at a time, the product and the sum each rounded,
-is pinned bit for bit against a numpy float32 loop. On the card
-``chip_smoke.py`` holds the kernel bit-equal to the plain version.
+is pinned bit for bit against a numpy float32 loop, also at shapes where
+the CUDA kernel's tiles end unevenly. On the card ``chip_smoke.py`` holds
+the kernel bit-equal to the plain version, its tile edges included.
 """
 import numpy as np
 import pytest
@@ -82,7 +83,13 @@ def test_identity_dynamics(ref):
     np.testing.assert_allclose(np.asarray(r_last), h0, atol=1e-6)
 
 
-@pytest.mark.parametrize("B,S,D", SHAPES + [(2, 1, 5)])
+@pytest.mark.parametrize("B,S,D", SHAPES + [
+    (2, 1, 5),
+    # shapes at the CUDA kernel's edges (S one step past its 32-step
+    # tile, one short of it, one past three; D = 33 past its 32-channel
+    # tile); the loop has no tiles, so only chip_smoke.py's kernel phase
+    # holds the kernel itself at such edges
+    (2, 33, 33), (2, 31, 33), (1, 97, 33)])
 def test_plain_is_the_kernels_order_bit_for_bit(B, S, D):
     a, b, h0 = _inputs(B, S, D, seed=1)
     want_all, want_last = _numpy_loop(a, b, h0)

@@ -15,7 +15,8 @@ card by ``chip_smoke.py``. What is compared, and how closely:
   * the plain version against a scalar loop in the kernel's order (each
     op rounded to f32, y summed j = 0..n-1): bit-equal, with exp taken
     from torch in both (the kernel's expf is held to torch's exp on the
-    card);
+    card), also at shapes where the CUDA kernel's warps and tiles split
+    unevenly (its tile edges themselves are checked on the card only);
   * the wrapper's checks: f32 only, contiguous, n <= 16, matching shapes.
 """
 import numpy as np
@@ -90,7 +91,15 @@ def _kernel_order(ins, exp_a):
     return y, h
 
 
-@pytest.mark.parametrize("B,S,D,n", [(2, 5, 3, 4), (1, 9, 2, 16)])
+@pytest.mark.parametrize("B,S,D,n", [
+    (2, 5, 3, 4), (1, 9, 2, 16),
+    # shapes at the CUDA kernel's edges (n not divisible by its 4 warps,
+    # D = 33 past its 32-lane tile, S one step past its 8-step tile and
+    # past two); the loop has no tiles, so these pin the plain version's
+    # order there, and only chip_smoke.py's kernel phase holds the kernel
+    # itself at such edges
+    (2, 6, 3, 1), (1, 5, 33, 5), (2, 4, 3, 13),
+    (1, 9, 3, 16), (1, 17, 2, 13)])
 def test_plain_version_is_the_kernels_order(B, S, D, n):
     ins = _inputs(B, S, D, n, seed=3)
     dt, a_w = torch.from_numpy(ins[0]), torch.from_numpy(ins[4])
