@@ -10,21 +10,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build — nvcc builds the six sources of
    ``src/repro_torch/kernels/csrc`` (one process per source, all started
    together), with ptxas' register report;
-3. kernels — each of the nine kernels against its plain PyTorch version
-   on the card, bit-equal, at the main path's shapes and at large ones,
-   with degenerate and ragged rows (the whole-tensor quantizer also on one
-   tensor of more than 2^31 entries; the scans also at the edges of their
-   tiles: S = 1, a step short of a tile and past one or three, D = 33,
-   and state sizes that do not divide among the selective scan's warps);
-   the payload decoder ``unpack(pack(g))`` also bit-equal to the two-step
-   quantizer kernel on the same inputs; device times of kernel, plain
+3. kernels — first the launch floor (``ota_combine`` on (1, 2) f64, the
+   least time one launch takes in this harness); then each of the nine
+   kernels against its plain PyTorch version on the card, bit-equal (the
+   floats compared as integers, so -0.0 differs from +0.0), at the main
+   path's shapes and at large ones, with degenerate and ragged rows (the
+   two-step quantizer also with rows crossing its 2-entry vectors, d odd
+   and d = 3, and on g and u views off a vector's boundary; the
+   weighted sum also on Fig. 3 Best Channel's pattern of 6 of 10 devices
+   out of the round, a trial of silent devices only, which must sum to
+   +0.0, 300 devices a trial, and words read off an 8-byte boundary; the
+   whole-tensor quantizer also on one tensor of more than 2^31 entries;
+   the scans also at the edges of their tiles: S = 1, a step short of a
+   tile and past one or three, D = 33, and state sizes that do not divide
+   among the selective scan's warps); the payload decoder
+   ``unpack(pack(g))`` also bit-equal to the two-step quantizer kernel on
+   the same inputs; device times of kernel, plain
    version and the one PyTorch call computing the same function (where
    there is one), beside the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate, whichever is larger); the
    SASS instructions a step in each scan's unrolled full tile, one body
    for each warp role, and the rest of its tile loop (``cuobjdump``, "not
-   measured" where the toolkit has none); from those and the SM clock
-   read while it runs, the selective scan's issue-slot floor as a range;
+   measured" where the toolkit has none), and of the f64 weighted sum's
+   unrolled device loop; from those and the SM clock read while each
+   runs, the selective scan's issue-slot floor and the f64 weighted sum's
+   (issue slots and the FP64 pipe) as ranges, estimates;
 4. main path — the paper's experiments at full width through the port's
    ``FLTrainer`` on the card, parameters from the closed-form design
    anchors:
@@ -105,8 +115,13 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**kw, "at_s": time.perf_counter() - T_IMPORT}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -147,6 +162,15 @@ def device_ms(fn, iters: int, reps: int = 5) -> float:
     return ms
 
 
+def same_bits(a, b) -> bool:
+    """Equal as integers: unlike ``torch.equal``, -0.0 differs from +0.0
+    (and NaNs compare by their bits)."""
+    import torch
+    ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(ints), b.view(ints)))
+
+
 def bound(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -185,29 +209,51 @@ def ota_case(rows, d, gdt, seed):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def quant_case(rows, d, dt, seed):
+def quant_inputs(rows, d, dt, seed, offset=0):
+    """Kernel 2's inputs, made on the card from a seed: (g, u, scal). Row 1
+    is all zero (m = 0), row 2 has no bits (L = 0). ``offset``: g and u
+    are taken as ``[offset:]`` of (rows + offset, d) buffers, so with d
+    odd their addresses are off the kernel's 2-entry vectors."""
     import torch
-    from repro_torch.kernels import dithered_quantize_rows, ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    g = torch.randn(rows, d, generator=gen, device="cuda", dtype=dt)
-    g = g * (torch.rand(rows, 1, generator=gen, device="cuda", dtype=dt) * 5)
+    g = torch.randn(rows + offset, d, generator=gen, device="cuda", dtype=dt)
+    g = g * (torch.rand(rows + offset, 1, generator=gen, device="cuda",
+                        dtype=dt) * 5)
+    g = g[offset:]
     g[1] = 0.0                                    # m = 0: all-zero row
-    u = torch.rand(rows, d, generator=gen, device="cuda")
+    u = torch.rand(rows + offset, d, generator=gen, device="cuda")[offset:]
+    check(g.is_contiguous() and u.is_contiguous(), "views not contiguous")
+    check(offset == 0 or d % 2 == 0
+          or (g.data_ptr() % (2 * g.element_size()) != 0
+              and u.data_ptr() % 8 != 0),
+          "the offset views are aligned to the kernel's vectors")
     bits = torch.randint(1, 17, (rows,), generator=gen, device="cuda")
     levels = (2.0 ** bits.to(dt)) - 1.0
     levels[2] = 0.0                               # a device with no bits
-    m = g.abs().amax(1)
-    scal = torch.stack([m, levels], 1).contiguous()
+    scal = torch.stack([g.abs().amax(1), levels], 1).contiguous()
+    return g, u, scal
+
+
+def quant_case(rows, d, dt, seed, offset=0):
+    """Kernel 2 against its plain version (``quant_inputs``), compared by
+    bits; with an odd d and ``offset`` 1, on the kernel's entry-by-entry
+    path for operands off its vectors."""
+    import torch
+    from repro_torch.kernels import dithered_quantize_rows, ref
+    g, u, scal = quant_inputs(rows, d, dt, seed, offset)
+    m, levels = scal[:, 0], scal[:, 1]
     out = dithered_quantize_rows(g, u, scal)
     plain = ref.dithered_quantize_rows_ref(g, u, m, levels)
     torch.cuda.synchronize()
     check(out.shape == (rows, d) and bool(torch.isfinite(out).all()),
           "dithered_quantize_rows output")
     err = float((out - plain).abs().max())
-    check(torch.equal(out, plain),
-          f"dithered_quantize_rows != plain at ({rows}, {d}) {dt}: "
-          f"max err {err}")
-    check(bool((out[1:3] == 0).all()), "degenerate rows must quantize to 0")
+    check(same_bits(out, plain),
+          f"dithered_quantize_rows != plain at ({rows}, {d}) {dt} offset "
+          f"{offset}: max err {err}")
+    check(not bool(out[1:3].view(torch.int64 if dt == torch.float64
+                                 else torch.int32).any()),
+          "degenerate rows must quantize to +0.0")
     # this run's data: invalid rows read nothing and only write zeros
     live = int(((m > 0) & (levels > 0)).sum())
     s = g.element_size()
@@ -217,7 +263,7 @@ def quant_case(rows, d, dt, seed):
     plain_ms = device_ms(
         lambda: ref.dithered_quantize_rows_ref(g, u, m, levels), iters)
     b_ms, b_by = bound(nbytes, 10 * live * d, str(dt).split(".")[1])
-    return dict(shape=[rows, d], dtype=str(dt).split(".")[1],
+    return dict(shape=[rows, d], dtype=str(dt).split(".")[1], offset=offset,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -225,15 +271,14 @@ def quant_case(rows, d, dt, seed):
 PAYLOAD_SOURCE = "src/repro_torch/kernels/csrc/payload.cu"
 
 
-def payload_case(rows, d, dt, cb, seed, trials):
-    """The three payload kernels on one set of rows, each against its plain
-    version; rows = trials x devices for the weighted sum. Row 1 is all
-    zero (m = 0), row 2 has no bits (L = 0), and one more device is out of
-    the round (weight 0)."""
+def payload_inputs(rows, d, dt, cb, seed, trials, silent="one"):
+    """Rows of the payload cases, made on the card from a seed: (g, u,
+    scal, weights w (trials, rows // trials)). Row 1 is all zero (m = 0)
+    and row 2 has no bits (L = 0). ``silent`` says which devices are out
+    of the round (w = 0): "one", the last device of the last trial;
+    "best_channel", Fig. 3 Best Channel's pattern, 6 of the 10 devices of
+    every trial (K = 4 scheduled); "trial", every device of trial 0."""
     import torch
-    from repro_torch.kernels import (dithered_quantize_rows,
-                                     packed_weighted_sum, quantize_pack_rows,
-                                     ref, unpack_dequant_rows)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g = torch.randn(rows, d, generator=gen, device="cuda", dtype=dt)
     g = g * (torch.rand(rows, 1, generator=gen, device="cuda", dtype=dt) * 5)
@@ -249,10 +294,36 @@ def payload_case(rows, d, dt, cb, seed, trials):
     scal = torch.stack([m, levels], 1).contiguous()
     n = rows // trials
     w = torch.rand(trials, n, generator=gen, device="cuda", dtype=dt) * 2
-    w[-1, -1] = 0.0
+    if silent == "one":
+        w[-1, -1] = 0.0
+    elif silent == "best_channel":
+        for t in range(trials):
+            off = torch.rand(n, generator=gen, device="cuda").argsort()[:n - 4]
+            w[t, off] = 0.0
+    elif silent == "trial":
+        w[0] = 0.0
+    else:
+        raise ValueError(silent)
+    return g, u, scal, w
+
+
+def payload_case(rows, d, dt, cb, seed, trials, silent="one",
+                 misaligned=False, timed=True):
+    """The three payload kernels on one set of rows (``payload_inputs``),
+    each against its plain version, compared by bits; rows = trials x
+    devices for the weighted sum. ``misaligned``: the weighted sum reads
+    its words from a view 4 bytes past an 8-byte boundary."""
+    import torch
+    from repro_torch.kernels import (dithered_quantize_rows,
+                                     packed_weighted_sum, quantize_pack_rows,
+                                     ref, unpack_dequant_rows)
+    g, u, scal, w = payload_inputs(rows, d, dt, cb, seed, trials, silent)
+    m, levels = scal[:, 0], scal[:, 1]
+    n = rows // trials
     scal3 = torch.cat([scal.reshape(trials, n, 2), w[..., None]],
                       -1).contiguous()
-    tag = f"({rows}, {d}) {dt} code_bits {cb}"
+    tag = (f"({rows}, {d}) {dt} code_bits {cb} trials {trials} silent "
+           f"{silent}{' misaligned' if misaligned else ''}")
 
     words = quantize_pack_rows(g, u, scal, cb)
     words_p = ref.quantize_pack_rows_ref(g, u, scal, cb)
@@ -260,6 +331,12 @@ def payload_case(rows, d, dt, cb, seed, trials):
     out_p = ref.unpack_dequant_rows_ref(words, scal, cb, d)
     two_step = dithered_quantize_rows(g, u, scal)
     words4 = words.reshape(trials, n, *words.shape[1:])
+    if misaligned:
+        flat = torch.empty(words4.numel() + 1, dtype=torch.int32,
+                           device="cuda")
+        flat[1:] = words4.flatten()
+        words4 = flat[1:].view(words4.shape)
+        check(words4.data_ptr() % 8 == 4, "the words view is aligned")
     acc = packed_weighted_sum(words4, scal3, cb, d)
     acc_p = ref.packed_weighted_sum_ref(words4, scal3, cb, d)
     torch.cuda.synchronize()
@@ -270,12 +347,16 @@ def payload_case(rows, d, dt, cb, seed, trials):
         "packed_weighted_sum": float((acc - acc_p).abs().max())}
     check(torch.equal(words, words_p), f"quantize_pack_rows != plain at {tag}")
     check(not bool(words[1:3].any()), "degenerate rows must code to 0")
-    check(torch.equal(out, out_p), f"unpack_dequant_rows != plain at {tag}")
-    check(torch.equal(out, two_step),
+    check(same_bits(out, out_p), f"unpack_dequant_rows != plain at {tag}")
+    check(same_bits(out, two_step),
           f"unpack(pack(g)) != dithered_quantize_rows kernel at {tag}")
     check(acc.shape == (trials, d) and bool(torch.isfinite(acc).all()),
           "packed_weighted_sum output")
-    check(torch.equal(acc, acc_p), f"packed_weighted_sum != plain at {tag}")
+    check(same_bits(acc, acc_p), f"packed_weighted_sum != plain at {tag}")
+    if silent == "trial":
+        check(not bool(acc[0].view(torch.int64 if dt == torch.float64
+                                   else torch.int32).any()),
+              f"a trial of silent devices must sum to +0.0 at {tag}")
 
     # this run's data: degenerate rows read nothing and write zero words
     # (or zeros); the sum needs only the words of devices that quantize
@@ -308,9 +389,10 @@ def payload_case(rows, d, dt, cb, seed, trials):
         b_ms, b_by = bound(nbytes, ops, fam)
         out_rows[kname] = dict(
             shape=[rows, d], trials=trials, dtype=fam, code_bits=cb,
-            max_abs_err=errs[kname], ms=device_ms(fn, iters),
-            plain_ms=device_ms(plain_fn, iters), library_ms=None,
-            bound_ms=b_ms, bound_by=b_by)
+            silent=silent, misaligned=misaligned, max_abs_err=errs[kname],
+            ms=device_ms(fn, iters) if timed else None,
+            plain_ms=device_ms(plain_fn, iters) if timed else None,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return out_rows
 
 
@@ -456,7 +538,8 @@ def sass_bodies(lib: Path, function: str, marker: str):
     markers, and the other instructions of the tile loop (the outermost
     backward branch's span, less every stretch holding a marker): what a
     tile can add to a body at most (the wait, the barrier, the copies,
-    the dispatch). "not measured" where the toolkit has no cuobjdump."""
+    the dispatch), and the opcodes of the first body. "not measured"
+    where the toolkit has no cuobjdump."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -489,6 +572,11 @@ def sass_bodies(lib: Path, function: str, marker: str):
     top = max(marks)
     check(top > 0, f"no {marker} in {function}'s SASS")
     bodies = [len(st) for st, k in zip(stretches, marks) if k == top]
+    first = next(st for st, k in zip(stretches, marks) if k == top)
+    opcodes = {}
+    for i in first:                          # the first body's opcodes
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins[i][1]).split()[0].split(".")[0]
+        opcodes[op] = opcodes.get(op, 0) + 1
     lo, hi = max(((int(m[3], 16), ins[i][0]) for i, m in enumerate(match)
                   if m and m[3] and int(m[3], 16) < ins[i][0]),
                  key=lambda span: span[1] - span[0])
@@ -496,7 +584,8 @@ def sass_bodies(lib: Path, function: str, marker: str):
     loop_other = sum(lo <= a <= hi and i not in marked
                      for i, (a, _) in enumerate(ins))
     return dict(steps_a_body=top, bodies=bodies,
-                per_step=[b / top for b in bodies], loop_other=loop_other)
+                per_step=[b / top for b in bodies], loop_other=loop_other,
+                opcodes=opcodes)
 
 
 def issue_floor(shape, row, bodies) -> dict:
@@ -522,6 +611,90 @@ def issue_floor(shape, row, bodies) -> dict:
     return dict(shape=list(shape), ms=row["ms"], sms=sms, **clock,
                 instructions_an_element=per_element, floor_ms=floor_ms,
                 share_of_floor=[f / row["ms"] for f in floor_ms])
+
+
+FP64_LANES_AN_SM = 64   # H100 SXM: 34 TFLOP/s FP64 = 132 SMs x 64 FMA x 2 x 1.98 GHz
+CONV64_AN_SM = 16       # conversions to and from 64-bit types a clock an SM
+                        # (CUDA C++ Programming Guide, throughput, cc 9.0)
+
+
+def graph_of(fn, calls: int):
+    """``calls`` calls of ``fn`` captured in one CUDA graph (after a warm
+    call on a side stream), to keep the card busy with short kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def wsum_issue_floor(row, bodies) -> dict:
+    """An estimate of the f64 weighted sum's floor at the main path's case
+    (``row``, 8-bit codes; its inputs made again from the same seed):
+    every code of every word of the devices it keeps, at the SASS
+    instructions an entry of its full unrolled device loop (two DMUL an
+    entry; the low end the loop's bodies, the high end the largest body
+    and all the loop's other code), over four warp-instructions a clock on
+    every SM, its FP64 instructions an entry over the FP64 pipe's 64
+    lanes an SM, and its I2F.F64 conversions an entry over the 16 a clock
+    an SM, at the SM clock read while it runs."""
+    import torch
+    from repro_torch.kernels import packed_weighted_sum, quantize_pack_rows
+    if bodies == "not measured":
+        return dict(shape=row["shape"], floor_ms="not measured")
+    (rows, d), trials, cb = row["shape"], row["trials"], row["code_bits"]
+    g, u, scal, w = payload_inputs(rows, d, torch.float64, cb, seed=d + cb,
+                                   trials=trials)
+    n = rows // trials
+    words = quantize_pack_rows(g, u, scal, cb).reshape(trials, n, -1, 128)
+    scal3 = torch.cat([scal.reshape(trials, n, 2), w[..., None]],
+                      -1).contiguous()
+    graph = graph_of(lambda: packed_weighted_sum(words, scal3, cb, d), 200)
+    clock = sm_clock_under(graph.replay, 1500)
+    del graph
+    mhz = float(clock["clocks_sm"].split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    live = (scal[:, 0] > 0) & (scal[:, 1] > 0)
+    kept = int((live.reshape(trials, n) & (w != 0)).sum())
+    entries = kept * words.shape[2] * 128 * (32 // cb)
+    per_dmul = (sum(bodies["per_step"]) / len(bodies["per_step"]),
+                (max(bodies["bodies"]) + bodies["loop_other"])
+                / bodies["steps_a_body"])
+    per_entry = [2 * k for k in per_dmul]
+    fp64_entry = 2 * sum(bodies["opcodes"].get(op, 0) for op in
+                         ("DADD", "DMUL", "DFMA")) / bodies["steps_a_body"]
+    issue_ms = [entries / 32 * k / (4 * sms * mhz * 1e6) * 1e3
+                for k in per_entry]
+    fp64_ms = entries * fp64_entry / (FP64_LANES_AN_SM * sms * mhz * 1e6) * 1e3
+    conv_entry = 2 * bodies["opcodes"].get("I2F", 0) / bodies["steps_a_body"]
+    conv_ms = entries * conv_entry / (CONV64_AN_SM * sms * mhz * 1e6) * 1e3
+    floor_ms = [max(f, fp64_ms, conv_ms) for f in issue_ms]
+    return dict(shape=row["shape"], trials=trials, code_bits=cb,
+                ms=row["ms"], bound_ms=row["bound_ms"], sms=sms, **clock,
+                entries=entries, instructions_an_entry=per_entry,
+                fp64_an_entry=fp64_entry, i2f_an_entry=conv_entry,
+                issue_ms=issue_ms, fp64_pipe_ms=fp64_ms, i2f_ms=conv_ms,
+                floor_ms=floor_ms,
+                share_of_floor=[f / row["ms"] for f in floor_ms])
+
+
+def ota_launch_floor() -> dict:
+    """``ota_combine`` on (1, 2) f64 (48 bytes) timed as every kernel case
+    is: the least time one launch takes in this harness."""
+    import torch
+    from repro_torch.kernels import ota_combine, ref
+    g = torch.tensor([[1.5, -2.0]], dtype=torch.float64, device="cuda")
+    inv = torch.tensor([0.25], dtype=torch.float64, device="cuda")
+    z = torch.tensor([[1e-3, 2e-3]], dtype=torch.float64, device="cuda")
+    check(same_bits(ota_combine(g, inv, z), ref.ota_combine_ref(g, inv, z)),
+          "ota_combine != plain at (1, 2)")
+    return dict(ms=device_ms(lambda: ota_combine(g, inv, z), 50))
 
 
 def sm_clock_under(fn, calls: int) -> dict:
@@ -1283,7 +1456,10 @@ def main() -> int:
         selective_scan=sass_bodies(build._target("selective_scan")[1],
                                    "selective_scan_kernelILi16E", "MUFU.EX2"),
         linear_scan=sass_bodies(build._target("linear_scan")[1],
-                                "linear_scan_kernel", "STG"))
+                                "linear_scan_kernel", "STG"),
+        packed_weighted_sum=sass_bodies(
+            build._target("payload")[1],
+            "packed_weighted_sum_kernelIdLi8ELb1E", "DMUL"))
     emit(phase="sass", **sass)
 
     # 3. kernels against their plain versions
@@ -1294,26 +1470,55 @@ def main() -> int:
             r = ota_case(*shape, gdt, seed=shape[1] % 97)
             emit(phase="kernel", kernel="ota_combine", **r)
             ota_rows[(shape, gdt)] = r
-    for shape in ((40, 7850), (50, 7850), (64, 1 << 20), (5, 1001)):
+    # the least time one launch takes in this harness: ota_combine on
+    # (1, 2) f64, 48 bytes
+    emit(phase="launch_floor", kernel="ota_combine", shape=[1, 2],
+         dtype="float64", **ota_launch_floor())
+    # the two-step quantizer: the main path (40, 7850) and Fig. 2 OTA's
+    # width at 50 rows, a large case, rows crossing its 2-entry vectors
+    # mid-row (d odd: 1001 and 1003, 1 and 3 mod 4; d = 3), g and u as
+    # views off a vector's boundary (offset 1, d odd: entry by entry) and
+    # as views that stay on one (d = 1002)
+    for shape, offset in (((40, 7850), 0), ((50, 7850), 0),
+                          ((64, 1 << 20), 0), ((5, 1001), 0),
+                          ((7, 1003), 0), ((9, 3), 0), ((40, 7851), 1),
+                          ((5, 1001), 1), ((5, 1002), 1)):
         for dt in (f64, f32):
-            r = quant_case(*shape, dt, seed=shape[0])
+            r = quant_case(*shape, dt, seed=shape[0], offset=offset)
             emit(phase="kernel", kernel="dithered_quantize_rows", **r)
-            quant_rows[(shape, dt)] = r
+            quant_rows[(shape, dt, offset)] = r
     # the payload kernels: the Fig. 3 main path (4 trials x 10 devices,
     # f64, 8-bit codes), the other code widths, the payload benchmark's
     # case (BENCH_kernel_payload.json: 256 devices x 10^6, f32), and
     # ragged widths
+    # and the weighted sum's edges: Fig. 3 Best Channel's pattern (6 of 10
+    # devices a trial out of the round), a trial of silent devices only,
+    # 300 devices a trial (five staging chunks, past any prefetch depth),
+    # and words read from a view off an 8-byte boundary
     payload_rows = {}
-    for rows, d, dt, cb, trials in (
-            (40, 147994, f64, 8, 4), (40, 147994, f32, 8, 4),
-            (40, 147994, f64, 4, 4), (40, 147994, f64, 16, 4),
-            (256, 1000000, f32, 8, 1),
-            (6, 1000, f64, 8, 2), (6, 1000, f32, 16, 2),
-            (4, 131073, f64, 8, 2), (4, 131073, f32, 4, 2)):
-        rs = payload_case(rows, d, dt, cb, seed=d + cb, trials=trials)
+    for rows, d, dt, cb, trials, silent, misaligned, timed in (
+            (40, 147994, f64, 8, 4, "one", False, True),
+            (40, 147994, f32, 8, 4, "one", False, True),
+            (40, 147994, f64, 4, 4, "one", False, True),
+            (40, 147994, f64, 16, 4, "one", False, True),
+            (256, 1000000, f32, 8, 1, "one", False, True),
+            (6, 1000, f64, 8, 2, "one", False, True),
+            (6, 1000, f32, 16, 2, "one", False, True),
+            (4, 131073, f64, 8, 2, "one", False, True),
+            (4, 131073, f32, 4, 2, "one", False, True),
+            (40, 147994, f64, 8, 4, "best_channel", False, True),
+            (30, 3001, f64, 8, 3, "trial", False, False),
+            (30, 3001, f32, 4, 3, "trial", False, False),
+            (600, 1000, f64, 8, 2, "one", False, False),
+            (600, 1003, f32, 16, 2, "best_channel", False, False),
+            (40, 147994, f64, 8, 4, "one", True, False),
+            (6, 1001, f32, 4, 2, "one", True, False)):
+        rs = payload_case(rows, d, dt, cb, seed=d + cb, trials=trials,
+                          silent=silent, misaligned=misaligned, timed=timed)
         for kname, r in rs.items():
             emit(phase="kernel", kernel=kname, **r)
-            payload_rows.setdefault(kname, {})[(rows, d, dt, cb)] = r
+            payload_rows.setdefault(kname, {})[
+                (rows, d, dt, cb, silent, misaligned)] = r
 
     # the per-row statistics: the digital suite's main path (Best
     # Channel-Norm over 4 trials x 10 devices at d = 7850, f64), Fig. 3's
@@ -1345,6 +1550,11 @@ def main() -> int:
         r = scan_case(*shape, seed=sum(shape), timed=timed)
         emit(phase="kernel", kernel="selective_scan", **r)
         scan_rows[shape] = r
+    emit(phase="issue_floor", kernel="packed_weighted_sum",
+         **wsum_issue_floor(
+             payload_rows["packed_weighted_sum"][
+                 (40, 147994, f64, 8, "one", False)],
+             sass["packed_weighted_sum"]))
     emit(phase="issue_floor", kernel="selective_scan",
          **issue_floor((4, 512, 8192, 16), scan_rows[(4, 512, 8192, 16)],
                        sass["selective_scan"]))
@@ -1501,7 +1711,7 @@ def main() -> int:
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at
     # falcon-mamba-7b's prefill; dithered_quantize at tinyllama's largest
     # leaf; linear_scan at recurrentgemma-2b's prefill)
-    main = (40, 147994, f64, 8)
+    main = (40, 147994, f64, 8, "one", False)
     table = []
     for kname, source, replaces, rows, row in (
             ("ota_combine", "src/repro_torch/kernels/csrc/ota_combine.cu",
@@ -1510,7 +1720,7 @@ def main() -> int:
             ("dithered_quantize_rows",
              "src/repro_torch/kernels/csrc/dithered_quant.cu",
              "src/repro/kernels/dithered_quant.py:67", quant_rows,
-             quant_rows[((40, 7850), f64)]),
+             quant_rows[((40, 7850), f64, 0)]),
             ("quantize_pack_rows", PAYLOAD_SOURCE,
              "src/repro/kernels/payload.py:159",
              payload_rows["quantize_pack_rows"],

@@ -25,14 +25,33 @@
 //
 // Bound: bytes. Each element reads g (8 or 4 bytes) and u (4) and writes
 // out for about ten operations, one of them a division, so the kernel is
-// one streaming pass. Design of the rows entry: blockIdx.y walks rows
-// (grid-stride past 65535), each block loads its row's (m, L) once, and
-// threads stride over the row's columns with coalesced scalar loads; d
-// needs no padding, the loop bound masks the ragged edge. The whole-tensor
+// one streaming pass.
+//
+// Design of the rows entry: the (rows, d) arrays are one flat index space
+// of n = rows * d entries, cut into vectors of V = 2 consecutive entries
+// (one 8-byte load of u, one 16-byte load of g in f64 or 8-byte in f32,
+// the matching store). Two entries a thread, not four: each entry's
+// correctly rounded division is a long dependent chain, and at the main
+// path's shape a thread does one vector, so its divisions decide its time
+// (four were a quarter slower in f64 on the card; PERF.md,
+// scripts/compare_uplink.py). Each block takes one contiguous run of
+// vectors, its threads striding over it by the block's width, so a warp's
+// loads are whole lines and a thread stays in one row for many strides. A
+// thread tracks its row and column by adding (it divides once, at its
+// start), and computes a row's constants (m, L, safe = 2m/L, valid) only
+// when its row changes: the per-row division is not repeated per entry,
+// and only x = (g + m) / safe is. A vector that crosses into the next row (d may be
+// odd) and the ragged end of the array take the same arithmetic entry by
+// entry. Operands whose address is not aligned to a vector (a contiguous
+// view may start anywhere) are cut into vectors of V = 1 entry, with
+// scalar loads. The grid is at most one wave of resident 128-thread
+// blocks; indices are 32-bit unless n nears 2^31.
+// Rows that do not quantize read nothing and write zeros. The whole-tensor
 // entry is one flat grid-stride loop over n (at most 16 blocks an SM), each
 // thread reading the (m, L) pair once; the Pallas kernel's (R, 128) padding
 // is not needed.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -80,39 +99,196 @@ __global__ void dithered_quantize_kernel(const T* __restrict__ g,
   }
 }
 
-template <typename T>
-__global__ void dithered_quantize_rows_kernel(const T* __restrict__ g,
-                                              const float* __restrict__ u,
-                                              const T* __restrict__ scal,
-                                              T* __restrict__ out,
-                                              int64_t rows, int64_t d) {
-  const int64_t c0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t cstride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    const T m = scal[2 * r];
-    const T levels = scal[2 * r + 1];
-    const bool valid = levels > T(0) && m > T(0);
-    const T safe = valid ? div_rn(mul_rn(T(2), m), levels) : T(1);
-    const T* gr = g + r * d;
-    const float* ur = u + r * d;
-    T* outr = out + r * d;
-    for (int64_t c = c0; c < d; c += cstride) {
-      outr[c] = valid ? quantize_entry(gr[c], ur[c], m, safe, levels) : T(0);
+constexpr int ROW_THREADS = 128;      // of 64, 128 and 256 the fastest
+constexpr int MAX_DEVICES = 64;
+
+// A row's constants: the step 2m/L, and whether the row quantizes at all.
+template <typename T, typename I>
+__device__ __forceinline__ void row_consts(const T* __restrict__ scal, I r,
+                                           T& m, T& levels, T& safe,
+                                           bool& valid) {
+  m = scal[2 * r];
+  levels = scal[2 * r + 1];
+  valid = levels > T(0) && m > T(0);
+  safe = valid ? div_rn(mul_rn(T(2), m), levels) : T(1);
+}
+
+// V consecutive entries: V = 2, one 16-byte load or store of doubles or
+// an 8-byte one of floats; V = 1, single entries; V = 4 (16-byte loads of
+// floats, two of doubles) is kept for scripts/compare_uplink.py's
+// 4-entry variant.
+template <int V>
+__device__ __forceinline__ void load_vec(const double* p, double (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = *p;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; k += 2) {
+      const double2 a = reinterpret_cast<const double2*>(p)[k / 2];
+      v[k] = a.x;
+      v[k + 1] = a.y;
     }
   }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(double* p, const double (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; k += 2)
+      reinterpret_cast<double2*>(p)[k / 2] = make_double2(v[k], v[k + 1]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Block b owns vectors [b * per_block, (b + 1) * per_block) of the flat
+// array, vectors of V entries: V = 2 when g, u and out all start on a
+// vector's boundary, else V = 1. I is int32 when the indices fit, else
+// int64.
+template <typename T, typename I, int V>
+__global__ void __launch_bounds__(ROW_THREADS)
+dithered_quantize_rows_kernel(const T* __restrict__ g,
+                              const float* __restrict__ u,
+                              const T* __restrict__ scal, T* __restrict__ out,
+                              I d, I n, I per_block) {
+  const I n_vec = (n + V - 1) / V;
+  const I v_first = (I)blockIdx.x * per_block;
+  const I v_end = n_vec - v_first < per_block ? n_vec : v_first + per_block;
+  I v = v_first + (I)threadIdx.x;
+  if (v >= v_end) return;
+  const I step = (I)blockDim.x * V;     // entries between a thread's vectors
+  const I step_r = step / d, step_c = step - step_r * d;
+  I i0 = v * V;
+  I r = i0 / d, c = i0 - r * d;
+  I cur = -1;                            // the row whose constants are held
+  T m = T(0), levels = T(0), safe = T(1);
+  bool valid = false;
+  for (; v < v_end; v += blockDim.x) {
+    if (r != cur) {
+      row_consts(scal, r, m, levels, safe, valid);
+      cur = r;
+    }
+    if (c + V <= d) {                    // the whole vector in row r
+      T res[V];
+      if (valid) {
+        T gv[V];
+        float uv[V];
+        load_vec<V>(g + i0, gv);
+        load_vec<V>(u + i0, uv);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          res[k] = quantize_entry(gv[k], uv[k], m, safe, levels);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) res[k] = T(0);
+      }
+      store_vec<V>(out + i0, res);
+    } else {                             // entry by entry, rows as they come
+      I rr = r, cc = c;
+      T m2 = m, l2 = levels, s2 = safe;
+      bool ok = valid;
+      for (int k = 0; k < V && i0 + k < n; ++k, ++cc) {
+        if (cc == d) {
+          ++rr;
+          cc = 0;
+          row_consts(scal, rr, m2, l2, s2, ok);
+        }
+        const I i = i0 + k;
+        out[i] = ok ? quantize_entry(g[i], u[i], m2, s2, l2) : T(0);
+      }
+    }
+    i0 += step;
+    r += step_r;
+    c += step_c;
+    if (c >= d) {
+      c -= d;
+      ++r;
+    }
+  }
+}
+
+// Blocks of `kernel` resident on the current device at once (SMs x blocks
+// an SM at ROW_THREADS threads), found once a device and kept in `cache`
+// (0: not yet).
+template <typename K>
+int resident_blocks(K kernel, std::atomic<int>* cache, int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < MAX_DEVICES && (*blocks = cache[dev].load()) > 0) return 0;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        ROW_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < MAX_DEVICES) cache[dev].store(*blocks);
+  return 0;
+}
+
+template <typename T, typename I, int V>
+int launch_rows(const void* g, const void* u, const void* scal, void* out,
+                int64_t d, int64_t n, void* stream) {
+  static std::atomic<int> cache[MAX_DEVICES];
+  auto kernel = dithered_quantize_rows_kernel<T, I, V>;
+  int wave = 0;
+  const int err = resident_blocks(kernel, cache, &wave);
+  if (err) return err;
+  // at most one wave; each block's run a whole number of strides
+  const int64_t n_vec = (n + V - 1) / V;
+  int64_t blocks = (n_vec + ROW_THREADS - 1) / ROW_THREADS;
+  if (blocks > wave) blocks = wave;
+  int64_t per_block = (n_vec + blocks - 1) / blocks;
+  per_block = (per_block + ROW_THREADS - 1) / ROW_THREADS * ROW_THREADS;
+  blocks = (n_vec + per_block - 1) / per_block;
+  kernel<<<(unsigned)blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)g, (const float*)u, (const T*)scal, (T*)out, (I)d, (I)n,
+      (I)per_block);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename I>
+int launch_rows_v(const void* g, const void* u, const void* scal, void* out,
+                  int64_t d, int64_t n, void* stream) {
+  const bool aligned =
+      (((uintptr_t)g | (uintptr_t)out) & (2 * sizeof(T) - 1)) == 0 &&
+      ((uintptr_t)u & (2 * sizeof(float) - 1)) == 0;
+  return aligned ? launch_rows<T, I, 2>(g, u, scal, out, d, n, stream)
+                 : launch_rows<T, I, 1>(g, u, scal, out, d, n, stream);
 }
 
 template <typename T>
 int launch(const void* g, const void* u, const void* scal, void* out,
            int64_t rows, int64_t d, void* stream) {
-  constexpr int THREADS = 256;
-  int64_t bx = (d + THREADS - 1) / THREADS;
-  if (bx > 1024) bx = 1024;
-  const int64_t by = rows < 65535 ? rows : 65535;
-  const dim3 grid((unsigned)bx, (unsigned)by);
-  dithered_quantize_rows_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)g, (const float*)u, (const T*)scal, (T*)out, rows, d);
-  return (int)cudaGetLastError();
+  const int64_t n = rows * d;
+  // int32 indices while every index a thread forms (up to n plus one
+  // stride) stays below 2^31
+  if (n < (int64_t(1) << 31) - (int64_t(1) << 16))
+    return launch_rows_v<T, int32_t>(g, u, scal, out, d, n, stream);
+  return launch_rows_v<T, int64_t>(g, u, scal, out, d, n, stream);
 }
 
 template <typename T>

@@ -172,10 +172,11 @@ def test_port_imports_neither_jax_nor_reference():
                          env={**os.environ, "PYTHONPATH": str(src)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    # nor does any source line, lazily imported ones and the chip script
-    # included
+    # nor does any source line, lazily imported ones, the chip script and
+    # the card's scripts included
     banned = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = [*(src / "repro_torch").rglob("*.py"),
-             src.parent / "chip_smoke.py"]
+             src.parent / "chip_smoke.py",
+             *(src.parent / "scripts").glob("*.py")]
     hits = [str(f) for f in files if banned.search(f.read_text())]
     assert not hits, hits
