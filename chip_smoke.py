@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    together), with ptxas' register report;
 3. kernels — first the launch floor (``ota_combine`` on (1, 2) f64, the
    least time one launch takes in this harness); then each of the nine
-   kernels against its plain PyTorch version on the card, bit-equal (the
+   kernels (ten entries: kernel 1's row entry and its keyed entry, which
+   draws its threefry normals itself) against its plain PyTorch version
+   on the card, bit-equal (the
    floats compared as integers, so -0.0 differs from +0.0), at the main
    path's shapes and at large ones, with degenerate and ragged rows (the
    two-step quantizer also with rows crossing its 2-entry vectors, d odd
@@ -20,7 +22,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    weighted sum also on Fig. 3 Best Channel's pattern of 6 of 10 devices
    out of the round, a trial of silent devices only, which must sum to
    +0.0, 300 devices a trial, and words read off an 8-byte boundary; the
-   whole-tensor quantizer also on one tensor of more than 2^31 entries;
+   whole-tensor quantizer and the keyed epilogue also on one tensor of
+   more than 2^31 entries, the keyed epilogue also either side of the
+   plain draw's 2^24-counter chunks and with no noise; the row statistics
+   also at the edges of their 8-block cluster's chunks, d below one
+   vector a chunk, rows off a 16-byte boundary, 70,000 rows and a NaN
+   entry;
    the scans also at the edges of their tiles: S = 1, a step short of a
    tile and past one or three, D = 33, and state sizes that do not divide
    among the selective scan's warps); the payload decoder
@@ -34,7 +41,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    measured" where the toolkit has none), and of the f64 weighted sum's
    unrolled device loop; from those and the SM clock read while each
    runs, the selective scan's issue-slot floor and the f64 weighted sum's
-   (issue slots and the FP64 pipe) as ranges, estimates;
+   (issue slots and the FP64 pipe) as ranges, estimates, and the keyed
+   epilogue's: threefry's 32-bit integer operations an entry over the
+   integer pipe, which at the maximum clock is its bound when above the
+   bytes', beside the SASS of its loop;
 4. main path — the paper's experiments at full width through the port's
    ``FLTrainer`` on the card, parameters from the closed-form design
    anchors:
@@ -87,9 +97,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      at full width and depth (22 layers, d_model 2048, 32 heads / 4 KV
      heads, d_ff 5632, vocab 32,000, 1,100,048,384 bf16 parameters), 3
      steps of 8 x 128 tokens over 4 clients under the ideal, OTA and
-     digital aggregators: exactly 12 ``ota_combine`` launches a step on
-     OTA, 48 ``dithered_quantize`` a step on digital, nothing else;
-     finite losses; the loss per step, steps/s, tokens/s and peak memory;
+     digital aggregators: exactly 12 ``ota_combine_keyed`` launches a step
+     on OTA (none of the row entry), 48 ``dithered_quantize`` a step on
+     digital, nothing else; finite losses; the loss per step, steps/s,
+     tokens/s and peak memory, and one more step under the profiler:
+     every launch on the card and the device time a step;
 7. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
@@ -160,6 +172,24 @@ def device_ms(fn, iters: int, reps: int = 5) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def event_ms(fn, iters: int) -> float:
+    """Device time of one ``fn()`` between CUDA events around ``iters``
+    calls after a warm one, for work a CUDA graph cannot capture (the
+    plain threefry draw copies its constants to the card); at milliseconds
+    a call, the card's queue hides the host's launch gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def same_bits(a, b) -> bool:
@@ -396,39 +426,57 @@ def payload_case(rows, d, dt, cb, seed, trials, silent="one",
     return out_rows
 
 
-def reduce_case(rows, d, gdt, seed):
-    """Per-row (max |g|, sum g^2) against its plain version: both add in
-    the kernel's order, so bit-equal. Row 0 is all zero."""
+def reduce_inputs(rows, d, gdt, seed):
+    """Kernel 4's rows, made on the card from a seed, and the accumulator
+    type (f32 for bf16 rows). Row 0 is all zero."""
     import torch
-    from repro_torch.kernels import ref, row_maxabs_sumsq
     acc = torch.float32 if gdt == torch.bfloat16 else gdt
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g = torch.randn(rows, d, generator=gen, device="cuda", dtype=acc)
     g = (g * (torch.rand(rows, 1, generator=gen, device="cuda", dtype=acc)
               * 5)).to(gdt)
     g[0] = 0.0
+    return g, acc
+
+
+def reduce_case(rows, d, gdt, seed, timed=True, nan=False):
+    """Per-row (max |g|, sum g^2) against its plain version
+    (``reduce_inputs``): both add in the kernel's order, so bit-equal,
+    compared as integers. With ``nan``, row 2 holds one NaN entry (its
+    maximum and sum are NaN, the other rows as ever)."""
+    import torch
+    from repro_torch.kernels import ref, row_maxabs_sumsq
+    g, acc = reduce_inputs(rows, d, gdt, seed)
+    if nan:
+        g[2, d // 3] = float("nan")
     out = row_maxabs_sumsq(g, acc)
     plain = ref.row_maxabs_sumsq_ref(g, acc)
     torch.cuda.synchronize()
+    finite = torch.isfinite(out).all(1)
     check(out.shape == (rows, 2) and out.dtype == acc
-          and bool(torch.isfinite(out).all()) and not bool(out[0].any()),
+          and bool(finite.sum() == rows - int(nan))
+          and (not nan or bool(torch.isnan(out[2]).all()))
+          and not bool(out[0].any()),
           f"row_maxabs_sumsq output at ({rows}, {d}) {gdt}")
-    err = float((out - plain).abs().max())
-    check(torch.equal(out, plain),
+    err = float((out - plain)[finite].abs().max())
+    check(same_bits(out, plain),
           f"row_maxabs_sumsq != plain at ({rows}, {d}) {gdt}: max err {err}")
     nbytes = rows * d * g.element_size() + rows * 2 * out.element_size()
-    iters = 50 if nbytes < 64e6 else 4
-    ms = device_ms(lambda: row_maxabs_sumsq(g, acc), iters)
-    plain_ms = device_ms(lambda: ref.row_maxabs_sumsq_ref(g, acc), iters)
-    # one PyTorch call reading the same bytes for half of the function
-    lib_ms = device_ms(
-        lambda: torch.linalg.vector_norm(g, dim=1, dtype=acc), iters)
-    b_ms, b_by = bound(nbytes, 3 * rows * d, str(acc).split(".")[1])
-    return dict(shape=[rows, d], dtype=str(gdt).split(".")[1],
-                acc_dtype=str(acc).split(".")[1], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
-                library="torch.linalg.vector_norm (the sum half only)",
-                bound_ms=b_ms, bound_by=b_by)
+    row = dict(shape=[rows, d], dtype=str(gdt).split(".")[1],
+               acc_dtype=str(acc).split(".")[1], nan_row=nan,
+               max_abs_err=err, ms=None, plain_ms=None, library_ms=None,
+               library="torch.linalg.vector_norm (the sum half only)")
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * rows * d,
+                                             str(acc).split(".")[1])
+    if timed:
+        iters = 50 if nbytes < 64e6 else 4
+        row["ms"] = device_ms(lambda: row_maxabs_sumsq(g, acc), iters)
+        row["plain_ms"] = device_ms(
+            lambda: ref.row_maxabs_sumsq_ref(g, acc), iters)
+        # one PyTorch call reading the same bytes for half of the function
+        row["library_ms"] = device_ms(
+            lambda: torch.linalg.vector_norm(g, dim=1, dtype=acc), iters)
+    return row
 
 
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
@@ -1239,6 +1287,155 @@ def whole_quant_beyond_2_31():
     return worst
 
 
+OTA_SOURCE = "src/repro_torch/kernels/csrc/ota_combine.cu"
+KEYED_NOISE_SCALE = 1e-2
+
+
+def keyed_inputs(shape, dt, seed):
+    """The keyed epilogue's inputs: g made on the card from a seed, the
+    host-made inv_alpha (1/2.5 in f32, then g's dtype, as ``ops.
+    ota_combine`` makes it) and a threefry leaf key."""
+    import torch
+    from repro_torch.core import rngstream
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+    inv = float((1.0 / torch.tensor(2.5, dtype=torch.float32)).to(dt))
+    key = rngstream.split(rngstream.prng_key(seed), 12)[seed % 12]
+    return g, inv, key
+
+
+def keyed_case(shape, dt, seed, scale=KEYED_NOISE_SCALE, timed=False):
+    """Kernel 1's keyed entry (normals drawn in the kernel) against its
+    plain version (``rngstream.normal`` on the card, then the epilogue),
+    bit-equal as integers; with ``scale`` 0, also exactly g * inv_alpha.
+    Timed at the train path's largest leaf."""
+    import torch
+    from repro_torch.kernels import ota_combine_keyed, ref
+    g, inv, key = keyed_inputs(shape, dt, seed)
+    out = ota_combine_keyed(g, inv, scale, key)
+    plain = ref.ota_combine_keyed_ref(g, inv, scale, key)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    check(out.shape == g.shape and same_bits(out, plain),
+          f"ota_combine_keyed != plain at {list(shape)} {dt}: max err {err}")
+    check(bool(torch.isfinite(out).all()),
+          f"ota_combine_keyed not finite at {list(shape)}")
+    if scale == 0:
+        check(same_bits(out, g * inv), "ota_combine_keyed with no noise is "
+                                       "not g * inv_alpha")
+    del plain
+    n = g.numel()
+    row = dict(shape=list(shape), dtype=str(dt).split(".")[1], n=n,
+               scale=scale, max_abs_err=err, ms=None, plain_ms=None,
+               library_ms=None, bound_by="bytes")
+    # the bytes alone; the main case's bound takes the larger of this and
+    # the integer pipe's floor (keyed_floor)
+    row["bytes_ms"], _ = bound(2 * n * g.element_size(), 0, "float32")
+    row["bound_ms"] = row["bytes_ms"]
+    if timed:
+        row["ms"] = device_ms(
+            lambda: ota_combine_keyed(g, inv, scale, key),
+            5 if n > (1 << 24) else 50)
+        row["plain_ms"] = event_ms(
+            lambda: ref.ota_combine_keyed_ref(g, inv, scale, key), 3)
+    del g, out
+    free_card()
+    return row
+
+
+INT32_LANES_AN_SM = 64   # 32-bit integer add, logic and shift results a
+                         # clock an SM (CUDA C++ Programming Guide,
+                         # arithmetic instruction throughput, cc 9.0)
+# 32-bit integer operations one counter's normal needs: threefry2x32's two
+# initial key adds, 20 rounds of add, rotate and xor, 5 key injections of
+# two adds (the round number folded into the key word), and the xor, shift
+# and or that make the uniform's bits
+THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
+
+
+def keyed_floor(row) -> dict:
+    """The keyed entry's floor at ``row``'s case (f32): THREEFRY_INT_OPS an
+    entry over the 32-bit integer pipe's 64 lanes on every SM, at the SM
+    clock read while it runs and at the card's maximum SM clock (the
+    bound). Beside it, from the SASS of the f32 kernel's grid-stride loop
+    (cuobjdump; "not measured" where the toolkit has none), the
+    instructions an entry over the loop's whole span and their opcodes: a
+    count of what the compiler emitted, both of erfinv's branches (the
+    rarer taken by 0.7% of entries) and the register moves included, not
+    of what issues."""
+    import re
+    import shutil
+    import torch
+    from repro_torch.kernels import build, ota_combine_keyed
+    sass = "not measured"
+    tool = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    if Path(tool).exists():
+        out = subprocess.run(
+            [tool, "-sass", str(build._target("ota_combine")[1])],
+            capture_output=True, text=True, timeout=120)
+        check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+        found = [part for part in out.stdout.split("Function : ")[1:]
+                 if "ota_combine_keyed_kernelIfLi4E"
+                 in part.split(None, 1)[0]]
+        check(len(found) == 1, f"{len(found)} SASS functions match the "
+                               f"keyed f32 kernel")
+        ins = [(int(m[1], 16), m[2]) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", found[0])]
+        back = [(int(m[3], 16), a) for a, text in ins
+                for m in [re.match(SASS_BRANCH, text)]
+                if m and m[3] and int(m[3], 16) < a]
+        lo, hi = max(back, key=lambda span: span[1] - span[0])
+        opcodes = {}
+        for a, text in ins:
+            if lo <= a <= hi:
+                op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+                op = op.split(".")[0]
+                opcodes[op] = opcodes.get(op, 0) + 0.25   # 4 entries a loop
+        sass = dict(instructions_an_entry=sum(opcodes.values()),
+                    opcodes_an_entry=dict(sorted(opcodes.items(),
+                                                 key=lambda kv: -kv[1])))
+    g, inv, key = keyed_inputs(row["shape"], torch.float32, seed=7)
+    clock = sm_clock_under(
+        lambda: ota_combine_keyed(g, inv, KEYED_NOISE_SCALE, key), 800)
+    del g
+    free_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def floor(mhz):
+        return (row["n"] * THREEFRY_INT_OPS
+                / (INT32_LANES_AN_SM * sms * mhz * 1e6) * 1e3)
+    floor_ms = floor(float(clock["clocks_sm"].split()[0]))
+    return dict(shape=row["shape"], ms=row["ms"], sms=sms, **clock,
+                int_ops_an_entry=THREEFRY_INT_OPS, floor_ms=floor_ms,
+                floor_ms_at_max_clock=floor(
+                    float(clock["clocks_max_sm"].split()[0])),
+                bytes_ms=row["bytes_ms"], share_of_floor=floor_ms / row["ms"],
+                sass=sass)
+
+
+def keyed_beyond_2_31():
+    """The keyed entry on one tensor of 2^31 + 4097 f32 entries (int64
+    counters, hi word 0 and then 1), bit-equal to the plain version over
+    the whole tensor."""
+    import torch
+    from repro_torch.kernels import ota_combine_keyed, ref
+    n = (1 << 31) + 4097
+    g, inv, key = keyed_inputs((n,), torch.float32, seed=31)
+    out = ota_combine_keyed(g, inv, KEYED_NOISE_SCALE, key)
+    plain = ref.ota_combine_keyed_ref(g, inv, KEYED_NOISE_SCALE, key)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    check(same_bits(out, plain),
+          f"ota_combine_keyed beyond 2^31 differs: max err {err}")
+    emit(phase="kernel", kernel="ota_combine_keyed", shape=[n],
+         dtype="float32", scale=KEYED_NOISE_SCALE, max_abs_err=err,
+         checked="the whole tensor")
+    del g, out, plain
+    free_card()
+    return err
+
+
 def client_grads(model, tokens, n_clients):
     """Each client's gradient leaves (the reference's stacked leaves) for
     one batch, computed once."""
@@ -1282,7 +1479,8 @@ def psum_kernel_vs_plain():
     key = rngstream.prng_key(3)
     n_leaves = len(grads[0])
     result = {}
-    for mode, want in (("ideal", {}), ("ota", {"ota_combine": n_leaves}),
+    for mode, want in (("ideal", {}),
+                       ("ota", {"ota_combine_keyed": n_leaves}),
                        ("digital", {"dithered_quantize": 4 * n_leaves})):
         kernels.reset_launch_counts()
         kern = wireless_psum(grads, rnd, key, mode=mode)
@@ -1331,7 +1529,7 @@ def train_small_vs_cpu():
         cpu = train(cpu_m, aggregator=agg, **run)
         card = train(card_m, aggregator=agg, **run)
         want = 3 * {"ideal": 0, "ota": 12, "digital": 48}[agg]
-        got = sum(c["ota_combine"] + c["dithered_quantize"]
+        got = sum(c["ota_combine_keyed"] + c["dithered_quantize"]
                   for c in card.launches)
         check(got == want, f"scaled-down {agg}: {got} launches, not {want}")
         rel = max(abs(a / b - 1) for a, b in zip(card.losses, cpu.losses))
@@ -1363,8 +1561,10 @@ def train_full():
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models import make_model, param_count
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_port import profiled
     cfg = get_config(TINYLLAMA)
-    per_step = {"ideal": {}, "ota": {"ota_combine": 12},
+    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": 12},
                 "digital": {"dithered_quantize": 48}}
     total = {}
     for agg in ("ideal", "ota", "digital"):
@@ -1394,6 +1594,11 @@ def train_full():
               f"tinyllama {agg}: losses {log.losses}")
         check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
               f"tinyllama {agg}: parameters not finite")
+        # one more step under the profiler, after the counts were read:
+        # every launch on the card and its device time, a step
+        by_family, step_launches, busy_us, prof_wall = profiled(
+            lambda: train(model, aggregator=agg, steps=1, log=lambda s: None,
+                          **TRAIN_RUN))
         tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
         emit(phase="main_path", run=f"tinyllama-1.1b train {agg}",
              arch=TINYLLAMA, n_layers=cfg.n_layers, params=n_params,
@@ -1404,6 +1609,11 @@ def train_full():
              tokens_per_s=3 * tokens / sum(log.step_s),
              steady_steps_per_s=2 / sum(log.step_s[1:]),
              steady_tokens_per_s=2 * tokens / sum(log.step_s[1:]),
+             step_launches_profiled=step_launches,
+             step_device_ms_profiled=busy_us / 1e3,
+             step_wall_ms_profiled=prof_wall * 1e3,
+             step_device_ms_by_family={k: v / 1e3 for k, v in sorted(
+                 by_family.items(), key=lambda kv: -kv[1])},
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
@@ -1447,7 +1657,8 @@ def main() -> int:
          kernels=["ota_combine", "dithered_quantize_rows",
                   "quantize_pack_rows", "unpack_dequant_rows",
                   "packed_weighted_sum", "row_maxabs_sumsq",
-                  "selective_scan", "dithered_quantize", "linear_scan"])
+                  "selective_scan", "dithered_quantize", "linear_scan",
+                  "ota_combine_keyed"])
     # the scans' full tiles in SASS: instructions per (b, t, d, j) of the
     # selective scan at n = 16 (one MUFU.EX2 each) in the body of each of
     # its warps' roles (first, middle, last), per step and channel of the
@@ -1523,13 +1734,27 @@ def main() -> int:
     # the per-row statistics: the digital suite's main path (Best
     # Channel-Norm over 4 trials x 10 devices at d = 7850, f64), Fig. 3's
     # width, the payload benchmark's case in f32 and bf16, ragged widths
+    # (timed); the edges of the cluster's partition: d below one vector a
+    # chunk (1, 7, 15 in f64), either side of rows that fill their 8
+    # chunks (C L = 7856 in f64, 7872 in f32), rows off a 16-byte
+    # boundary (entry by entry), 70,000 rows (past the grid's y limit, the
+    # rows on x), and a row with a NaN entry
     reduce_rows = {}
-    for rows, d, dt in ((40, 7850, f64), (40, 147994, f64),
-                        (256, 1000000, f32), (256, 1000000, bf16),
-                        (5, 1, f64), (5, 1001, f32), (5, 1001, bf16)):
-        r = reduce_case(rows, d, dt, seed=d % 89)
+    for rows, d, dt, timed, nan in (
+            (40, 7850, f64, True, False), (40, 147994, f64, True, False),
+            (256, 1000000, f32, True, False),
+            (256, 1000000, bf16, True, False), (5, 1, f64, True, False),
+            (5, 1001, f32, True, False), (5, 1001, bf16, True, False),
+            (5, 7, f64, False, False), (5, 15, f64, False, False),
+            (5, 7855, f64, False, False), (5, 7857, f64, False, False),
+            (5, 7871, f32, False, False), (5, 7873, f32, False, False),
+            (40, 7851, f64, False, False), (5, 1003, bf16, False, False),
+            (70000, 33, f32, False, False), (70000, 7, f64, False, False),
+            (40, 7850, f64, False, True), (5, 1001, f32, False, True),
+            (5, 1003, bf16, False, True)):
+        r = reduce_case(rows, d, dt, seed=d % 89, timed=timed, nan=nan)
         emit(phase="kernel", kernel="row_maxabs_sumsq", **r)
-        reduce_rows[(rows, d, dt)] = r
+        reduce_rows[(rows, d, dt, nan)] = r
 
     # the selective scan: falcon-mamba's prefill (4 x 512 tokens, d_inner
     # 8192, n 16) and the batch-1 long prompt (timed); the reference
@@ -1596,6 +1821,32 @@ def main() -> int:
     whole_quant_beyond_2_31()
     free_card()
 
+    # kernel 1's keyed entry (normals drawn in the kernel): tinyllama's
+    # largest stacked leaf (22 layers of w_gate, f32, timed), one and three
+    # entries, either side of the plain draw's 2^24-counter chunk, f64,
+    # no noise (exactly g * inv_alpha), and a tensor of more than 2^31
+    # entries
+    keyed_rows = {}
+    for shape, dt, scale, timed in (
+            ((22, 2048, 5632), f32, KEYED_NOISE_SCALE, True),
+            ((1,), f32, KEYED_NOISE_SCALE, False),
+            ((3,), f32, KEYED_NOISE_SCALE, False),
+            (((1 << 24) - 1,), f32, KEYED_NOISE_SCALE, False),
+            (((1 << 24) + 1,), f32, KEYED_NOISE_SCALE, False),
+            ((3, 5, 7777), f64, KEYED_NOISE_SCALE, True),
+            ((4096, 1001), f32, 0.0, False)):
+        r = keyed_case(shape, dt, seed=len(shape) + shape[-1] % 13,
+                       scale=scale, timed=timed)
+        emit(phase="kernel", kernel="ota_combine_keyed", **r)
+        keyed_rows[(shape, dt, scale)] = r
+    keyed_main = keyed_rows[((22, 2048, 5632), f32, KEYED_NOISE_SCALE)]
+    floor = keyed_floor(keyed_main)
+    emit(phase="issue_floor", kernel="ota_combine_keyed", **floor)
+    if floor["floor_ms_at_max_clock"] > keyed_main["bytes_ms"]:
+        keyed_main["bound_ms"], keyed_main["bound_by"] = (
+            floor["floor_ms_at_max_clock"], "operations")
+    keyed_beyond_2_31()
+
     # 4. the main paths: Fig. 2 and Fig. 3 at full width
     launches = {}
 
@@ -1606,7 +1857,8 @@ def main() -> int:
 
     none = {"quantize_pack_rows": 0, "packed_weighted_sum": 0,
             "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0,
-            "selective_scan": 0, "dithered_quantize": 0, "linear_scan": 0}
+            "selective_scan": 0, "dithered_quantize": 0, "linear_scan": 0,
+            "ota_combine_keyed": 0}
     task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
@@ -1666,7 +1918,7 @@ def main() -> int:
              {"quantize_pack_rows": 40, "packed_weighted_sum": 40,
               "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
               "ota_combine": 0, "row_maxabs_sumsq": 0,
-              "dithered_quantize": 0},
+              "dithered_quantize": 0, "ota_combine_keyed": 0},
              rounds=40, trials=4, eval_every=20, seed=9)
     # a baseline on the fused route: Best Channel's 6 bits pack as 8-bit
     # codes at d = 147,994
@@ -1677,7 +1929,7 @@ def main() -> int:
              {"quantize_pack_rows": 10, "packed_weighted_sum": 10,
               "dithered_quantize_rows": 0, "unpack_dequant_rows": 0,
               "ota_combine": 0, "row_maxabs_sumsq": 0,
-              "dithered_quantize": 0},
+              "dithered_quantize": 0, "ota_combine_keyed": 0},
              must_fall=False, rounds=10, trials=4, eval_every=5, seed=9)
     del trainer, plain
     dither_matches_cpu(4, 10, 7850, (0, 1, 39))
@@ -1714,7 +1966,7 @@ def main() -> int:
     main = (40, 147994, f64, 8, "one", False)
     table = []
     for kname, source, replaces, rows, row in (
-            ("ota_combine", "src/repro_torch/kernels/csrc/ota_combine.cu",
+            ("ota_combine", OTA_SOURCE,
              "src/repro/kernels/ota_combine.py:29", ota_rows,
              ota_rows[((4, 7850), f64)]),
             ("dithered_quantize_rows",
@@ -1736,7 +1988,7 @@ def main() -> int:
             ("row_maxabs_sumsq",
              "src/repro_torch/kernels/csrc/row_reduce.cu",
              "src/repro/kernels/row_reduce.py:50", reduce_rows,
-             reduce_rows[(40, 7850, f64)]),
+             reduce_rows[(40, 7850, f64, False)]),
             ("selective_scan", SCAN_SOURCE,
              "src/repro/kernels/selective_scan.py:77", scan_rows,
              scan_rows[(4, 512, 8192, 16)]),
@@ -1745,7 +1997,9 @@ def main() -> int:
              quant3_rows[((22, 2048, 5632), f32, 255.0)]),
             ("linear_scan", LSCAN_SOURCE,
              "src/repro/kernels/linear_scan.py:63", lscan_rows,
-             lscan_rows[(4, 2560, 2560, False)])):
+             lscan_rows[(4, 2560, 2560, False)]),
+            ("ota_combine_keyed", OTA_SOURCE,
+             "src/repro/kernels/ota_combine.py:29", keyed_rows, keyed_main)):
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname],

@@ -46,6 +46,7 @@ FAMILIES = (                      # first match wins, on the kernel's name
     ("selective_scan", ("selective_scan",)),
     ("linear_scan", ("linear_scan",)),
     ("dithered_quantize", ("dithered_quantize_kernel",)),
+    ("ota_combine_keyed", ("ota_combine_keyed",)),
     ("ota_combine", ("ota_combine",)),
     ("dithered_quantize_rows", ("dithered_quantize",)),
     ("quantize_pack_rows", ("quantize_pack",)),

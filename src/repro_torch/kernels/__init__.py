@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port's main path, their plain PyTorch
 versions and their callers:
 
-  ota_combine     — fused OTA post-scale + noise epilogue (eq. (6))
+  ota_combine     — fused OTA post-scale + noise epilogue (eq. (6)), with
+                    the noise given, or drawn in the kernel from a
+                    threefry key (``ota_combine_keyed``)
   dithered_quant  — dithered quantize-dequantize (Sec. II-B), per row
                     and for one whole tensor
   payload         — the digital wire format at gradient scale: quantize and
@@ -19,7 +21,7 @@ build with nvcc at first use (``build.py``).
 from . import ops, ref
 from .dithered_quant import dithered_quantize, dithered_quantize_rows
 from .linear_scan import linear_scan
-from .ota_combine import ota_combine
+from .ota_combine import ota_combine, ota_combine_keyed
 from .payload import (packed_weighted_sum, quantize_pack_rows,
                       unpack_dequant_rows)
 from .row_reduce import row_maxabs_sumsq
@@ -27,7 +29,8 @@ from .selective_scan import selective_scan
 
 KERNELS = (ota_combine, dithered_quantize_rows, quantize_pack_rows,
            unpack_dequant_rows, packed_weighted_sum, row_maxabs_sumsq,
-           selective_scan, dithered_quantize, linear_scan)
+           selective_scan, dithered_quantize, linear_scan,
+           ota_combine_keyed)
 
 
 def launch_counts() -> dict:

@@ -20,6 +20,7 @@ from .dithered_quant import dithered_quantize_rows
 from .dithered_quant import dithered_quantize as dithered_quantize_kernel
 from .linear_scan import linear_scan as linear_scan_kernel
 from .ota_combine import ota_combine as ota_combine_kernel
+from .ota_combine import ota_combine_keyed
 from .payload import CODE_BITS_CHOICES
 from .selective_scan import selective_scan as selective_scan_kernel
 
@@ -76,17 +77,17 @@ def ota_combine(g: torch.Tensor, alpha, noise_scale, key,
     f64), with the normals drawn from the threefry ``key``
     (``repro/kernels/ops.py:354``): ``noise_scale`` is already divided by
     alpha, so z is not scaled again. inv_alpha = (1/alpha) in f32, then
-    g's dtype; one launch of the OTA epilogue over g as one row."""
-    inv_alpha = (1.0 / torch.as_tensor(alpha, dtype=torch.float32,
-                                       device=g.device)).to(g.dtype)
-    scale = torch.as_tensor(noise_scale, dtype=torch.float32,
-                            device=g.device)
-    z = (scale * rngstream.normal(key, g.shape, device=g.device)).to(g.dtype)
-    g2, z2 = g.reshape(1, -1), z.reshape(1, -1)
-    inv_alpha = inv_alpha.reshape(1)
-    out = (ota_combine_kernel(g2.contiguous(), inv_alpha, z2) if use_kernel
-           else ref.ota_combine_ref(g2, inv_alpha, z2))
-    return out.reshape(g.shape)
+    g's dtype, and noise_scale in f32 are made on the host (alpha and
+    noise_scale are host values on the train path) and passed as numbers;
+    one launch of the OTA epilogue's keyed entry, which draws the normals
+    itself. ``use_kernel=False`` draws them with ``rngstream.normal`` and
+    runs the plain epilogue (``ref.ota_combine_keyed_ref``), same bits."""
+    inv_alpha = float((1.0 / torch.as_tensor(alpha, dtype=torch.float32))
+                      .to(g.dtype))
+    scale = float(torch.as_tensor(noise_scale, dtype=torch.float32))
+    if use_kernel:
+        return ota_combine_keyed(g.contiguous(), inv_alpha, scale, key)
+    return ref.ota_combine_keyed_ref(g, inv_alpha, scale, key)
 
 
 def row_maxabs_sumsq(gs: torch.Tensor, *, use_kernel: bool = True,
@@ -94,9 +95,12 @@ def row_maxabs_sumsq(gs: torch.Tensor, *, use_kernel: bool = True,
     """Per-device gradient statistics in one pass (one launch for every
     leading index): gs (..., N, d) -> (maxabs (..., N), sumsq (..., N)),
     ``||g||_inf`` and ``sum g^2`` in ``acc_dtype`` (default gs's dtype;
-    bf16 payloads take f32). The sum's order is the kernel's (see
-    ``ref.row_maxabs_sumsq_ref``), so ``use_kernel=False`` gives the same
-    bits.
+    bf16 payloads take f32). The sum's order is the kernel's, a function
+    of d and the dtype alone: 8 chunks of a row (one block of a cluster
+    each), 256 threads a chunk striding over its 16-byte vectors with one
+    accumulator a lane, the lanes in order, a halving tree over the
+    threads, the chunks in rank order (``ref.row_maxabs_sumsq_ref``), so
+    ``use_kernel=False`` gives the same bits.
     """
     acc_dtype = gs.dtype if acc_dtype is None else acc_dtype
     g2 = gs.reshape(-1, gs.shape[-1])

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import rngstream
+
 
 def ota_combine_ref(g: torch.Tensor, inv_alpha: torch.Tensor,
                     z: torch.Tensor) -> torch.Tensor:
@@ -20,6 +22,24 @@ def ota_combine_ref(g: torch.Tensor, inv_alpha: torch.Tensor,
     (pre-scaled noise) in the accumulate dtype, to which g widens.
     """
     return g.to(z.dtype) * inv_alpha[:, None] + z
+
+
+def ota_combine_keyed_ref(g: torch.Tensor, inv_alpha: float, scale: float,
+                          key) -> torch.Tensor:
+    """The keyed OTA epilogue: ``g * inv_alpha + (scale * normal).to(g's
+    dtype)`` with ``normal = rngstream.normal(key, g.shape)`` (f32, the
+    normal's counter is g's flat index), as ``ota_combine_ref`` on g as
+    one row.
+
+    g: any shape, f64 or f32; inv_alpha: a number, taken in g's dtype;
+    scale: a number, taken in f32; key: a threefry key pair.
+    """
+    normal = rngstream.normal(key, g.shape, device=g.device)
+    z = (torch.tensor(scale, dtype=torch.float32, device=g.device)
+         * normal).to(g.dtype)
+    inv = torch.full((1,), inv_alpha, dtype=g.dtype, device=g.device)
+    return ota_combine_ref(g.reshape(1, -1), inv,
+                           z.reshape(1, -1)).reshape(g.shape)
 
 
 def dithered_quantize_rows_ref(g: torch.Tensor, u: torch.Tensor,
@@ -165,32 +185,70 @@ def quantized_weighted_sum_ref(g: torch.Tensor, u: torch.Tensor,
 
 # ------------------------------------------------- per-row statistics
 
-#: Threads of the row reduction's block: the stride of each thread's walk
-#: and the width of the halving tree (``csrc/row_reduce.cu``).
+#: The row reduction's order (``csrc/row_reduce.cu``), a function of d and
+#: g's type alone: each row is cut into REDUCE_CLUSTER chunks of
+#: :func:`reduce_chunk` entries (one block of a thread-block cluster each);
+#: in a chunk, thread t of REDUCE_THREADS owns vectors t, t + T, ... of
+#: 16 bytes of g (V entries), lane k of each adding into accumulator k.
 REDUCE_THREADS = 256
+REDUCE_CLUSTER = 8
+
+
+def reduce_chunk(d: int, vec: int) -> int:
+    """Entries in each of a row's REDUCE_CLUSTER chunks: ceil(d / (C V)) V,
+    V = ``vec`` entries to a 16-byte vector (2 f64, 4 f32, 8 bf16)."""
+    return -(-d // (REDUCE_CLUSTER * vec)) * vec
+
+
+def _halving_tree(acc: torch.Tensor) -> torch.Tensor:
+    """acc (..., w) as the first w of REDUCE_THREADS partials, the rest
+    +0: the tree s = T/2, ..., 1 (acc[j] = acc[j] + acc[j + s], j < s),
+    with the additions of +0 left out (they change no bit: a sum of
+    squares is never -0). Returns (...,)."""
+    s = REDUCE_THREADS // 2
+    while s:
+        w = acc.shape[-1]
+        if w > s:
+            acc = torch.cat([acc[..., :w - s] + acc[..., s:w],
+                             acc[..., w - s:s]], dim=-1)
+        s //= 2
+    return acc[..., 0]
 
 
 def row_maxabs_sumsq_ref(g: torch.Tensor, acc_dtype) -> torch.Tensor:
     """Per-row (max |g_r|, sum g_r^2) in ``acc_dtype``, in the kernel's
-    order: thread j of a row adds entries j, j + 256, ... in turn from 0,
-    then a halving tree (128, 64, ..., 1) adds the 256 partial sums.
+    order: each row padded with zeros to REDUCE_CLUSTER chunks of
+    ``reduce_chunk(d, V)`` entries, each chunk to (steps, T, V); the
+    (chunk, thread, lane) accumulators add the steps in turn from 0, the
+    V lanes combine in order, a halving tree adds the T threads' partials
+    and the chunks add in rank order. Only the threads that hold an entry
+    are kept (the others' +0 changes no bit), so a row of a few entries
+    needs a few accumulators.
 
-    g: (R, d), d >= 1. Zero padding to a multiple of 256 adds exact zeros.
-    Returns (R, 2): columns (maxabs, sumsq).
+    g: (R, d), d >= 1. Returns (R, 2): columns (maxabs, sumsq).
     """
     R, d = g.shape
-    t = REDUCE_THREADS
-    x = torch.nn.functional.pad(g.to(acc_dtype), (0, -d % t))
-    x = x.reshape(R, -1, t)
-    sq = x * x
-    acc = torch.zeros(R, t, dtype=acc_dtype, device=g.device)
-    for k in range(sq.shape[1]):
-        acc = acc + sq[:, k]
-    s = t // 2
-    while s:
-        acc = acc[:, :s] + acc[:, s:2 * s]
-        s //= 2
-    return torch.stack([x.abs().amax(dim=(1, 2)), acc[:, 0]], dim=1)
+    C, T = REDUCE_CLUSTER, REDUCE_THREADS
+    V = 16 // g.element_size()
+    L = reduce_chunk(d, V)
+    n_vec = L // V
+    threads = min(T, n_vec)
+    steps = -(-n_vec // threads)
+    x = torch.nn.functional.pad(g.to(acc_dtype), (0, C * L - d))
+    x = torch.nn.functional.pad(x.reshape(R, C, L),
+                                (0, (steps * threads - n_vec) * V))
+    x = x.reshape(R, C, steps, threads, V)
+    acc = torch.zeros(R, C, threads, V, dtype=acc_dtype, device=g.device)
+    for k in range(steps):
+        acc = acc + x[:, :, k] * x[:, :, k]
+    part = acc[..., 0]
+    for k in range(1, V):
+        part = part + acc[..., k]
+    part = _halving_tree(part)
+    total = part[:, 0]
+    for c in range(1, C):
+        total = total + part[:, c]
+    return torch.stack([x.abs().amax(dim=(1, 2, 3, 4)), total], dim=1)
 
 
 #: steps of the plain selective scan's transients at a time (memory only:

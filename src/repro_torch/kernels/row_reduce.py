@@ -3,6 +3,14 @@
 Replaces ``repro/kernels/row_reduce.py::row_maxabs_sumsq_2d``. CPU tensors
 take the plain version (``ref.row_maxabs_sumsq_ref``); CUDA tensors launch
 the kernel on the current stream or raise.
+
+The sum of squares adds in one fixed order, a function of d and g's type
+alone: each row is cut into ``ref.REDUCE_CLUSTER`` = 8 chunks of
+``ref.reduce_chunk(d, V)`` entries (one block of a thread-block cluster
+each), V = 16 / g's item size; in a chunk, thread t of 256 owns the
+16-byte vectors t, t + 256, ..., lane k of each adding into its own
+accumulator from +0; the lanes combine in order, a halving tree adds the
+threads' partials, and the chunks add in rank order.
 """
 from __future__ import annotations
 
