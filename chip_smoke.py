@@ -45,30 +45,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
    epilogue's: threefry's 32-bit integer operations an entry over the
    integer pipe, which at the maximum clock is its bound when above the
    bytes', beside the SASS of its loop;
-4. main path — the paper's experiments at full width through the port's
-   ``FLTrainer`` on the card, parameters from the closed-form design
-   anchors:
-     Fig. 2 (softmax regression, d = 7850): ProposedOTA (N = 50 devices,
-     1000 samples each, 4 trials, 30 rounds) and ProposedDigital (N = 10,
-     4 trials, 40 rounds, 150 s budget; then 20 rounds under a 1 s budget
-     that stops it mid-run);
+4. design — the batched Sec.-IV solver (``core/sca_torch.py``, float64
+   torch) on the card: Fig. 2's OTA design (N = 50) and digital design
+   (N = 10, T_max = 0.2 s) at B = 1, and ``benchmarks/design_bench.py``'s
+   fig2-sized sweep (N = 50, a 4 x 4 (omega_var, omega_bias) grid, B = 16)
+   for both families: cold and warm seconds (host clock to a
+   synchronise), the kernel launches and device ms of one more solve
+   under ``torch.profiler``, the objectives, which must agree with the
+   same solve on the CPU within 1e-6 relative (the digital bits
+   exactly); on the bench's quick grid (N = 20, 2 x 2) the card must
+   match or beat the port's SciPy SCA oracle (4 iterations) within 1e-3;
+5. main path — the paper's experiments at full width through the port's
+   ``FLTrainer`` on the card:
+     Fig. 2 (softmax regression, d = 7850), on the parameters the card
+     designed in phase 4: ProposedOTA (N = 50 devices, 1000 samples each,
+     4 trials, 30 rounds) and ProposedDigital (N = 10, 4 trials, 40
+     rounds, 150 s budget; then 20 rounds under a 1 s budget that stops
+     it mid-run);
      Fig. 2's OTA suite (OPC OTA-FL, OPC OTA-Comp, LCPC OTA-Comp, BB-FL
      Interior and Alternative; N = 50, 30 rounds) and digital suite (Best
      Channel, Best Channel-Norm, Proportional Fairness, UQOS, QML and
      FedTOE; N = 10, K = 4, 40 rounds under the figure's 150 s budget);
      Fig. 3 (MLP 3072 -> 48 -> 10, d = 147,994, N = 10 devices with two
-     classes and 100 samples each, 4 trials): ProposedOTA (30 rounds),
-     ProposedDigital (40 rounds) and Best Channel (10 rounds, r = 6), the
-     digital ones on the fused route (8-bit codes packed once a round, one
-     packed weighted sum a round, no two-step quantizer).
+     classes and 100 samples each, 4 trials), on the closed-form design
+     anchors (min-noise gamma; uniform at a 15% participation target):
+     ProposedOTA (30 rounds), ProposedDigital (40 rounds) and Best
+     Channel (10 rounds, r = 6), the digital ones on the fused route
+     (8-bit codes packed once a round, one packed weighted sum a round,
+     no two-step quantizer).
    Each run's launch counts start at 0 and must be the expected ones;
    the loss must be finite (and fall, for the proposed schemes); the same
    run with the plain versions (``use_kernel=False``) must give the same
    trajectory to the bit; the dither stream made on the card must equal
-   the CPU's to the bit; every scheme at a small size, and the proposed
+   the CPU's to the bit; every scheme at a small size (the proposed ones
+   on parameters the card designed and on the anchors), and the proposed
    ones at Fig. 3 width, must agree with the port's CPU run (which the
    tests tie to the JAX reference);
-5. serve (``repro_torch.launch.serve.serve``), random weights from a
+6. serve (``repro_torch.launch.serve.serve``), random weights from a
    seed, for falcon-mamba-7b (the selective scan on its CUDA kernel) and
    recurrentgemma-2b (the RG-LRU recurrence on the linear-scan kernel,
    local attention over the KV ring buffer):
@@ -87,7 +100,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly one scan launch a recurrent
      layer in the prefill (64, 18) and none in decode, finite logits;
      prefill and decode tokens/s and the peak memory;
-6. FL-LM training (``repro_torch.launch.train``, the wireless collective
+7. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
      against its plain route on the same per-client gradients, bit-equal
@@ -102,7 +115,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
      every launch on the card and the device time a step;
-7. the kernel table, nvidia-smi's line, and the result line.
+8. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
 import gc
@@ -774,25 +787,155 @@ def sm_clock_under(fn, calls: int) -> dict:
     return dict(clocks_sm=sm, clocks_max_sm=sm_max, power_draw=power)
 
 
-# --------------------------------------------------------------- main path
+# ------------------------------------------------------------------ design
 
-def fig2_setup(n_devices, n_train_per_class, t_max_s=0.2):
-    """The Fig. 2 cell at full width: MNIST-like data, one class and 1000
-    samples per device, closed-form design anchors."""
+DESIGN_CPU_RTOL = 1e-6      # card against the CPU, objectives
+PARITY_RTOL = 1e-3          # card against the SciPy SCA oracle
+                            # (benchmarks/design_bench.py's gate)
+
+
+def bench_specs(n_devices, grid):
+    """``benchmarks/design_bench.py``'s grid: deployment seed 1, d = 7850,
+    G = 20, T_max = 0.2 s, (omega_var, omega_bias) log-spaced over
+    [0.1, 10] x the strongly convex weights at eta = 0.1, mu = 0.01,
+    kappa_sc = 3."""
     import numpy as np
-    from repro_torch.core import ota_design, digital_design
+    from repro_torch.core import digital_design, ota_design
     from repro_torch.core.bounds import ObjectiveWeights
     from repro_torch.core.channel import WirelessConfig, make_deployment
-    from repro_torch.data import (FLDataset, SyntheticSpec,
-                                  make_classification_dataset,
-                                  partition_by_class)
+    dep = make_deployment(WirelessConfig(n_devices=n_devices, seed=1))
+    cfg = dep.cfg
+    base = ObjectiveWeights.strongly_convex(eta=0.1, mu=0.01, kappa_sc=3.0,
+                                            n=n_devices)
+    weights = [ObjectiveWeights(omega_var=base.omega_var * a,
+                                omega_bias=base.omega_bias * b)
+               for a in np.logspace(-1.0, 1.0, grid[0])
+               for b in np.logspace(-1.0, 1.0, grid[1])]
+    ota = [ota_design.OTADesignSpec(
+        lambdas=dep.lambdas, dim=7850, g_max=20.0, e_s=cfg.energy_per_symbol,
+        n0=cfg.noise_power, weights=w) for w in weights]
+    dig = [digital_design.DigitalDesignSpec(
+        lambdas=dep.lambdas, dim=7850, g_max=20.0, e_s=cfg.energy_per_symbol,
+        n0=cfg.noise_power, bandwidth_hz=cfg.bandwidth_hz, t_max_s=0.2,
+        weights=w) for w in weights]
+    return ota, dig
+
+
+def launches_of(fn):
+    """Run ``fn()`` under ``torch.profiler`` (the card's activity only);
+    (kernel launches, {memory copy or set: count}, device ms) it made,
+    read from the profiler's raw events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, copies, busy_ns = 0, {}, 0
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_ns += evt.duration_ns()
+        if evt.name().startswith(("Memcpy", "Memset")):
+            copies[evt.name()] = copies.get(evt.name(), 0) + 1
+        else:
+            kernels += 1
+    check(kernels > 0, "the profiler saw no kernel on the card")
+    return kernels, copies, busy_ns / 1e6
+
+
+def design_case(family, specs, run, oracle_iters=None):
+    """Solve ``specs`` with the port's batched solver on the card: cold,
+    then warm (host clock to a synchronise), then once more under the
+    profiler; the same solve with ``device="cpu"`` must give the same
+    objectives within DESIGN_CPU_RTOL and, for the digital family, the
+    same finalized bits. With ``oracle_iters`` the case is the oracle
+    check instead of a timing: one solve on the card, each point also
+    solved by the port's SciPy SCA oracle (``design_*_sca``), which the
+    card must match or beat within PARITY_RTOL. Returns the card's
+    parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.core import digital_design, ota_design
+    batch, sca = ((ota_design.design_ota_batch, ota_design.design_ota_sca)
+                  if family == "ota" else
+                  (digital_design.design_digital_batch,
+                   digital_design.design_digital_sca))
+    line = dict(phase="design", family=family, run=run, batch=len(specs),
+                n_devices=specs[0].n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, objs = batch(specs)
+    torch.cuda.synchronize()
+    line["cold_s"] = time.perf_counter() - t0
+    if oracle_iters is None:
+        t0 = time.perf_counter()
+        params, objs = batch(specs)
+        torch.cuda.synchronize()
+        line["warm_s"] = time.perf_counter() - t0
+        kernels, copies, device_ms = launches_of(lambda: batch(specs))
+        line.update(launches=kernels, copies=copies, device_ms=device_ms,
+                    device_idle=1.0 - device_ms / 1e3 / line["warm_s"])
+    cpu_params, cpu_objs = batch(specs, device="cpu")
+    rel = float(np.max(np.abs(objs - cpu_objs) / np.abs(cpu_objs)))
+    check(np.all(np.isfinite(objs)) and rel <= DESIGN_CPU_RTOL,
+          f"design {run}: card vs CPU objectives differ by {rel} relative "
+          f"(limit {DESIGN_CPU_RTOL}): {objs.tolist()} vs "
+          f"{cpu_objs.tolist()}")
+    line.update(objectives=objs.tolist(), max_rel_vs_cpu=rel,
+                limit_vs_cpu=DESIGN_CPU_RTOL)
+    if family == "digital":
+        same = all(np.array_equal(p.r_bits, c.r_bits)
+                   for p, c in zip(params, cpu_params))
+        check(same, f"design {run}: r_bits differ between card and CPU")
+        line.update(r_bits_equal_cpu=True,
+                    r_bits=sorted({int(r) for p in params for r in p.r_bits}))
+    if oracle_iters is not None:
+        t0 = time.perf_counter()
+        oracle = np.array([sca(spec, n_iters=oracle_iters)[1].objective
+                           for spec in specs])
+        gap = float(np.max((objs - oracle) / np.abs(oracle)))
+        check(gap <= PARITY_RTOL,
+              f"design {run}: the card loses to the SCA oracle by {gap} "
+              f"relative (limit {PARITY_RTOL})")
+        line.update(oracle_n_iters=oracle_iters,
+                    oracle_objectives=oracle.tolist(),
+                    max_rel_gap_vs_oracle=gap, limit_vs_oracle=PARITY_RTOL,
+                    oracle_host_s=time.perf_counter() - t0)
+    emit(**line)
+    return params
+
+
+def design_phase():
+    """The batched Sec.-IV solver (``core/sca_torch.py``) on the card:
+    Fig. 2's two designs at B = 1, which the main path then runs on; the
+    design bench's fig2-sized sweep (N = 50, 4 x 4 weights, B = 16) for
+    both families; its quick grid (N = 20, 2 x 2, SCA oracle at 4
+    iterations) against the port's SciPy SCA oracle."""
+    *_, ospec, _ = fig2_problem(50)
+    *_, dspec = fig2_problem(10)
+    (ota_p,) = design_case("ota", [ospec], "Fig. 2 OTA, N = 50")
+    (dig_p,) = design_case("digital", [dspec],
+                           "Fig. 2 digital, N = 10, T_max = 0.2 s")
+    for family, specs in zip(("ota", "digital"), bench_specs(50, (4, 4))):
+        design_case(family, specs, "design bench sweep, N = 50, 4 x 4")
+    for family, specs in zip(("ota", "digital"), bench_specs(20, (2, 2))):
+        design_case(family, specs, "design bench quick grid, N = 20, 2 x 2",
+                    oracle_iters=4)
+    return ota_p, dig_p
+
+
+# --------------------------------------------------------------- main path
+
+def fig2_problem(n_devices, t_max_s=0.2):
+    """Fig. 2's task, deployment (seed 1), step and design problems at N
+    devices: softmax regression (d = 7850, G = 20, mu = 0.01), eta =
+    0.5 / (mu + L), the strongly convex weights at kappa_sc = 3, and the
+    digital budget T_max."""
+    from repro_torch.core import digital_design, ota_design
+    from repro_torch.core.bounds import ObjectiveWeights
+    from repro_torch.core.channel import WirelessConfig, make_deployment
     from repro_torch.fl import SoftmaxRegressionTask
-    spec = SyntheticSpec(n_train_per_class=n_train_per_class,
-                         n_test_per_class=200, noise_sigma=1.5, seed=0)
-    x_tr, y_tr, x_te, y_te = make_classification_dataset(spec)
-    ds = FLDataset.from_shards(
-        partition_by_class(x_tr, y_tr, n_devices, 1, 1000, seed=3),
-        x_te, y_te)
     task = SoftmaxRegressionTask(n_features=784, mu=0.01, g_max=20.0)
     dep = make_deployment(WirelessConfig(n_devices=n_devices, seed=1))
     cfg = dep.cfg
@@ -806,16 +949,23 @@ def fig2_setup(n_devices, n_train_per_class, t_max_s=0.2):
         lambdas=dep.lambdas, dim=task.dim, g_max=task.g_max,
         e_s=cfg.energy_per_symbol, n0=cfg.noise_power,
         bandwidth_hz=cfg.bandwidth_hz, t_max_s=t_max_s, weights=w)
-    ota_params = ota_design.params_from_gamma(
-        ospec, ota_design.anchor_min_noise(ospec))
-    # the uniform anchor at a 15% participation target: the higher rates
-    # fit 9-bit payloads in the 0.2 s budget; at the default 80% target
-    # only 1 bit fits, whose quantization noise swamps the step
-    dig_params = digital_design.finalize(
-        dspec, *digital_design.anchor_uniform(dspec, beta0=0.15))
-    check(np.isfinite(ota_params.alpha) and dig_params.r_bits.min() >= 1,
-          "design anchors")
-    return task, ds, dep, eta, ota_params, dig_params
+    return task, dep, eta, ospec, dspec
+
+
+def fig2_setup(n_devices, n_train_per_class):
+    """The Fig. 2 cell at full width: MNIST-like data, one class and 1000
+    samples per device; the parameters come from the design phase."""
+    from repro_torch.data import (FLDataset, SyntheticSpec,
+                                  make_classification_dataset,
+                                  partition_by_class)
+    task, dep, eta, _, _ = fig2_problem(n_devices)
+    spec = SyntheticSpec(n_train_per_class=n_train_per_class,
+                         n_test_per_class=200, noise_sigma=1.5, seed=0)
+    x_tr, y_tr, x_te, y_te = make_classification_dataset(spec)
+    ds = FLDataset.from_shards(
+        partition_by_class(x_tr, y_tr, n_devices, 1, 1000, seed=3),
+        x_te, y_te)
+    return task, ds, dep, eta
 
 
 def fig3_setup(n_devices=10, t_max_s=3.0):
@@ -961,8 +1111,9 @@ def digital_suite(dep, dconsts, k=4):
 def small_matches_cpu():
     """The port at a small size on the card against its CPU run, for
     every scheme of the main path (the tests tie the CPU run to the JAX
-    reference): 8x8 images (d = 650), 6 devices, the closed-form
-    anchors for the proposed schemes."""
+    reference): 8x8 images (d = 650), 6 devices; the proposed schemes on
+    parameters the card designed (``design_*_batch``) and on the
+    closed-form anchors."""
     import numpy as np
     from repro_torch.core import baselines as B
     from repro_torch.core import digital_design, ota_design
@@ -999,7 +1150,14 @@ def small_matches_cpu():
     dconsts = consts + (cfg.bandwidth_hz,)
     card_t = FLTrainer(task, ds, dep, eta)
     cpu_t = FLTrainer(task, ds, dep, eta, device="cpu")
+    (ota_designed,), _ = ota_design.design_ota_batch([ospec])
+    (dig_designed,), _ = digital_design.design_digital_batch([dspec])
     for agg, rel_tol, wall_ulps in (
+            (B.ProposedOTA(ota_designed, label="Proposed OTA-FL (designed "
+                                               "on the card)"), 1e-5, 0),
+            (B.ProposedDigital(dig_designed, label="Proposed Digital FL "
+                                                   "(designed on the card)"),
+             1e-3, 0),
             (B.ProposedOTA(ota_design.params_from_gamma(
                 ospec, ota_design.anchor_min_noise(ospec)),
                 label="Proposed OTA-FL (min-noise anchor)"), 1e-5, 0),
@@ -1847,7 +2005,11 @@ def main() -> int:
             floor["floor_ms_at_max_clock"], "operations")
     keyed_beyond_2_31()
 
-    # 4. the main paths: Fig. 2 and Fig. 3 at full width
+    # 4. the design solver on the card; Fig. 2's designs feed the main path
+    ota_p, dig_p = design_phase()
+    free_card()
+
+    # 5. the main paths: Fig. 2 and Fig. 3 at full width
     launches = {}
 
     def main_run(*args, **kw):
@@ -1859,12 +2021,12 @@ def main() -> int:
             "unpack_dequant_rows": 0, "row_maxabs_sumsq": 0,
             "selective_scan": 0, "dithered_quantize": 0, "linear_scan": 0,
             "ota_combine_keyed": 0}
-    task, ds, dep, eta, ota_p, _ = fig2_setup(50, 6000)
+    task, ds, dep, eta = fig2_setup(50, 6000)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
     main_run("Fig. 2 ProposedOTA", trainer, plain,
-             B.ProposedOTA(ota_p, label="Proposed OTA-FL (min-noise "
-                                         "anchor)"),
+             B.ProposedOTA(ota_p, label="Proposed OTA-FL (designed on the "
+                                         "card)"),
              {"ota_combine": 30, "dithered_quantize_rows": 0, **none},
              rounds=30, trials=4, eval_every=10, seed=0)
     # Fig. 2's OTA suite: one epilogue a round each, nothing else
@@ -1875,11 +2037,11 @@ def main() -> int:
                  {"ota_combine": 30, "dithered_quantize_rows": 0, **none},
                  must_fall=False, rounds=30, trials=4, eval_every=10, seed=0)
     del trainer, plain
-    task, ds, dep, eta, _, dig_p = fig2_setup(10, 1200)
+    task, ds, dep, eta = fig2_setup(10, 1200)
     trainer = FLTrainer(task, ds, dep, eta)
     plain = FLEngine(task, ds, dep, eta, use_kernel=False)
-    dig = B.ProposedDigital(dig_p, label="Proposed Digital FL (uniform "
-                                         "anchor)")
+    dig = B.ProposedDigital(dig_p, label="Proposed Digital FL (designed on "
+                                         "the card)")
     main_run("Fig. 2 ProposedDigital", trainer, plain, dig,
              {"dithered_quantize_rows": 40, "ota_combine": 0, **none},
              rounds=40, trials=4, eval_every=20, seed=0,
@@ -1938,7 +2100,7 @@ def main() -> int:
     fig3_matches_cpu()
     free_card()
 
-    # 5. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
+    # 6. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
     # its plain version at full width cut to one pattern, the card against
     # the CPU at the reduced sizes, then the main path at full width and
     # depth
@@ -1948,7 +2110,7 @@ def main() -> int:
         for k, v in serve_full(arch).items():
             launches[k] = launches.get(k, 0) + v
 
-    # 6. FL-LM training: the collective's kernel route against its plain
+    # 7. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
     # on the card against the CPU, then the main path at full width and
     # depth
@@ -1957,7 +2119,7 @@ def main() -> int:
     for k, v in train_full().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 7. the kernel table at the main path's shapes and types (launches:
+    # 8. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

@@ -5,9 +5,11 @@
   ota         — biased OTA aggregation (Sec. II-A)
   digital     — biased digital aggregation (Sec. II-B)
   quantize    — digital payload size
-  bounds      — design-objective weights
-  ota_design / digital_design — Sec. IV design anchors and the direct
-                OTA solver
+  bounds      — Theorem 1/2 bounds and the design-objective weights
+  sca         — the SciPy SCA loop (host code, the trusted oracle)
+  sca_torch   — the batched Sec. IV solver in float64 torch
+  ota_design / digital_design — Sec. IV design: anchors, the SCA and
+                direct solvers, the batched wrappers
   baselines   — the Sec. V schemes
   collectives — wireless_psum, the FL-LM train step's aggregation
 """

@@ -36,6 +36,14 @@ class DigitalParams:
     noise_psd: float
     bandwidth_hz: float
 
+    def betas(self, lambdas: np.ndarray) -> np.ndarray:
+        """beta_m = exp(-rho_m^2 / Lambda_m)."""
+        return np.exp(-(self.rhos ** 2) / np.asarray(lambdas))
+
+    def participation_levels(self, lambdas: np.ndarray) -> np.ndarray:
+        """p_m = beta_m / nu_m."""
+        return self.betas(lambdas) / self.nus
+
     def rates(self) -> np.ndarray:
         """R_m = log2(1 + E_s rho_m^2/N0) [bits/s/Hz] (eq. (17c))."""
         snr = self.energy_per_symbol * self.rhos ** 2 / self.noise_psd
@@ -44,6 +52,12 @@ class DigitalParams:
     def payloads(self) -> np.ndarray:
         return np.array([payload_bits(self.dim, int(r)) for r in self.r_bits],
                         dtype=np.float64)
+
+    def expected_latency(self, lambdas: np.ndarray) -> float:
+        """Expected per-round uplink latency (eq. (12)) [s]."""
+        rates = np.maximum(self.rates(), 1e-12)
+        return float(np.sum(self.betas(lambdas) * self.payloads()
+                            / (self.bandwidth_hz * rates)))
 
 
 def digital_round(params: DigitalParams, grads: torch.Tensor,

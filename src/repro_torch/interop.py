@@ -14,9 +14,12 @@ import numpy as np
 import torch
 
 from .core import baselines as B
+from .core.bounds import ObjectiveWeights
 from .core.channel import Deployment, WirelessConfig
 from .core.digital import DigitalParams
+from .core.digital_design import DigitalDesignSpec
 from .core.ota import OTAParams
+from .core.ota_design import OTADesignSpec
 from .data.loader import FLDataset
 from .kernels.ops import PackedGrads
 from .kernels.ref import LANES, payload_word_rows
@@ -40,6 +43,26 @@ def digital_params(ref) -> DigitalParams:
         kw[k] = np.asarray(kw[k], dtype=np.float64)
     kw["r_bits"] = np.asarray(kw["r_bits"], dtype=np.int64)
     return DigitalParams(**kw)
+
+
+def _design_spec(ref, cls):
+    kw = _fields(ref, cls)
+    kw["lambdas"] = np.asarray(kw["lambdas"], dtype=np.float64)
+    kw["weights"] = ObjectiveWeights(**_fields(ref.weights, ObjectiveWeights))
+    if kw["sigma_sq"] is not None:
+        kw["sigma_sq"] = np.asarray(kw["sigma_sq"], dtype=np.float64)
+    return cls(**kw)
+
+
+def ota_design_spec(ref) -> OTADesignSpec:
+    """``repro.core.ota_design.OTADesignSpec`` -> port ``OTADesignSpec``."""
+    return _design_spec(ref, OTADesignSpec)
+
+
+def digital_design_spec(ref) -> DigitalDesignSpec:
+    """``repro.core.digital_design.DigitalDesignSpec`` -> port
+    ``DigitalDesignSpec``."""
+    return _design_spec(ref, DigitalDesignSpec)
 
 
 def deployment(ref) -> Deployment:

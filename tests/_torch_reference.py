@@ -17,6 +17,7 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.core.ota", "repro.core.digital",
                "repro.core.ota_design", "repro.core.digital_design",
                "repro.core.baselines", "repro.core.bounds",
+               "repro.core.sca", "repro.core.sca_jax",
                "repro.data.synthetic", "repro.data.partition",
                "repro.data.loader", "repro.kernels.ops", "repro.fl.tasks",
                "repro.fl.engine", "repro.fl.trainer", "repro.configs",
