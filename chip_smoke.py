@@ -81,7 +81,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on parameters the card designed and on the anchors), and the proposed
    ones at Fig. 3 width, must agree with the port's CPU run (which the
    tests tie to the JAX reference);
-6. serve (``repro_torch.launch.serve.serve``), random weights from a
+6. scenario — the scenario layer (``repro_torch.api.execute``) on the
+   card, at the figures' full width with the rounds cut:
+   ``fig2_ota_sc(quick=False)`` at 30 rounds (kappa estimated on the
+   card over 50,000 samples, one batched OTA design at N = 50 and the
+   direct one, 9 schemes x (4 step-size probes + the 4-trial run)),
+   ``fig2_digital_sc(quick=False)`` at 40 rounds (N = 10, 8 schemes,
+   the 150 s budget) and ``fig3_nonconvex(quick=False)`` at 20 rounds
+   (d = 147,994, 7 schemes): the seconds of kappa, of each design and of
+   each scheme, the chosen eta and the final loss of each (finite, and
+   falling for the proposed schemes), each scheme's launches exactly as
+   its route makes them (the counts at 0 before each execute); each
+   re-run into its directory comes back all cached, with no launch and
+   the same manifest but for timings; ``sweep_smoke`` and a two-scheme
+   Fig. 2 digital quick spec (kappa = 3) on the card against the CPU
+   within the tests' tolerances; ``python -m repro_torch.api.cli run
+   sweep_smoke`` on the card, then ``--expect-cached``, then ``--jobs 2
+   --force`` with the serial manifest but for timings;
+7. serve (``repro_torch.launch.serve.serve``), random weights from a
    seed, for falcon-mamba-7b (the selective scan on its CUDA kernel) and
    recurrentgemma-2b (the RG-LRU recurrence on the linear-scan kernel,
    local attention over the KV ring buffer):
@@ -100,7 +117,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly one scan launch a recurrent
      layer in the prefill (64, 18) and none in decode, finite logits;
      prefill and decode tokens/s and the peak memory;
-7. FL-LM training (``repro_torch.launch.train``, the wireless collective
+8. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
      against its plain route on the same per-client gradients, bit-equal
@@ -115,7 +132,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
      every launch on the card and the device time a step;
-8. the kernel table, nvidia-smi's line, and the result line.
+9. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
 import gc
@@ -1212,6 +1229,327 @@ def fig3_matches_cpu():
              wall_time_equal=True)
 
 
+# ------------------------------------------------------------ scenario
+
+SCENARIO_OUT = ROOT / "experiments" / "results_torch" / "chip_smoke"
+SCENARIO_OTA_RTOL = 1e-5     # OTA trajectories, card against the CPU
+SCENARIO_DIG_RTOL = 1e-3     # digital trajectories (dither code flips)
+SCENARIO_OBJ_RTOL = 1e-6     # design objectives
+
+
+def engine_rounds(rounds, eval_every):
+    """The rounds one ``FLEngine.run`` computes: up to its last eval."""
+    return (rounds // eval_every) * eval_every
+
+
+def scheme_launches(key, spec):
+    """The launches one scheme's tuned run makes (``materialize.
+    tune_and_run``: a probe a step size when there are several, then the
+    final run), each kernel once a computed round on its route: every
+    OTA scheme but Ideal FedAvg combines through ``ota_combine``; the
+    digital ones quantize through ``dithered_quantize_rows`` below the
+    fused route's width, through ``quantize_pack_rows`` and
+    ``packed_weighted_sum`` at or above it, and Best Channel-Norm scores
+    its devices with one ``row_maxabs_sumsq``."""
+    from repro_torch.api import schemes
+    from repro_torch.kernels import launch_counts, ops
+    from repro_torch.api.materialize import build_task
+    r = spec.run
+    rounds = engine_rounds(r.rounds, r.eval_every)
+    if len(r.etas) > 1:
+        rounds += len(r.etas) * engine_rounds(r.rounds, max(r.rounds // 4, 1))
+    expect = dict.fromkeys(launch_counts(), 0)
+    ota = key in schemes.SUITES["fig2_ota"] + schemes.SUITES["fig3_ota"]
+    if ota and key != "ideal":
+        expect["ota_combine"] = rounds
+    elif not ota:
+        if build_task(spec).dim >= ops.FUSED_MIN_DIM:
+            expect["quantize_pack_rows"] = rounds
+            expect["packed_weighted_sum"] = rounds
+        else:
+            expect["dithered_quantize_rows"] = rounds
+        if key == "best_channel_norm":
+            expect["row_maxabs_sumsq"] = rounds
+    return expect
+
+
+class ScenarioClock:
+    """Times and launch counts of one ``execute`` by step: the kappa
+    estimate inside ``materialize``, each design group and each scheme's
+    tuned run, read by wrapping the module functions ``execute`` calls
+    (the card synchronised at each reading)."""
+
+    def __init__(self):
+        self.materialize_s, self.design_s, self.schemes = 0.0, [], []
+
+    def __enter__(self):
+        import importlib
+        import torch
+        from repro_torch import kernels
+        ex = importlib.import_module("repro_torch.api.execute")
+        mat = importlib.import_module("repro_torch.api.materialize")
+        self._saved = [(mat, "materialize", mat.materialize),
+                       (ex, "_solve_group", ex._solve_group),
+                       (mat, "run_cell_scheme", mat.run_cell_scheme)]
+        (_, _, materialize), (_, _, solve), (_, _, run) = self._saved
+
+        def timed(fn, sink):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                before = kernels.launch_counts()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                sink(time.perf_counter() - t0, a,
+                     {n: after[n] - before[n] for n in after}, out)
+                return out
+            return wrapped
+
+        def on_mat(s, a, launches, out):
+            self.materialize_s += s
+
+        def on_design(s, a, launches, out):
+            self.design_s.append(dict(family=a[0].family, solver=a[0].solver,
+                                      points=len(a[0].cell_indices),
+                                      direct=len(a[0].needs_direct),
+                                      seconds=s))
+
+        def on_scheme(s, a, launches, out):
+            self.schemes.append(dict(scheme=a[1].name, seconds=s,
+                                     launches={k: v for k, v in
+                                               launches.items() if v},
+                                     all_launches=launches, eta=out[1]))
+
+        mat.materialize = timed(materialize, on_mat)
+        ex._solve_group = timed(solve, on_design)
+        mat.run_cell_scheme = timed(run, on_scheme)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def manifest_sans_timings(manifest):
+    """A manifest without its wall-clock fields and cell statuses."""
+    m = {k: v for k, v in manifest.items() if k not in ("elapsed_s",)}
+    m["cells"] = [{k: v for k, v in c.items()
+                   if k not in ("elapsed_s", "status")}
+                  for c in manifest["cells"]]
+    return m
+
+
+def scenario_run(name, spec, proposed):
+    """Execute ``spec`` on the card into a fresh directory with the launch
+    counts at 0, read them just after; check each scheme's launches
+    exactly, finite losses (falling for the ``proposed`` keys); then run
+    it again into the same directory: every cell cached, no launch, the
+    same manifest but for timings. Returns the first run's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import execute, schemes
+    from repro_torch.api.materialize import build_task
+    out = SCENARIO_OUT / name
+    shutil.rmtree(out, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ScenarioClock() as clock:
+        rs = execute(spec, out_dir=out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check([c.status for c in rs] == ["computed"],
+          f"scenario {name}: statuses {[c.status for c in rs]}")
+    keys = schemes.expand_schemes(spec.schemes)
+    check(len(clock.schemes) == len(keys),
+          f"scenario {name}: {len(clock.schemes)} scheme runs for "
+          f"{len(keys)} keys")
+    total = dict.fromkeys(counts, 0)
+    rows = []
+    for key, timed, log in zip(keys, clock.schemes, rs.cell(0).logs):
+        expect = scheme_launches(key, spec)
+        check(timed["all_launches"] == expect,
+              f"scenario {name} {key}: launches {timed['launches']}, "
+              f"expected {expect}")
+        for k, v in expect.items():
+            total[k] += v
+        loss = np.asarray(log["loss_mean"])
+        fell = bool(loss[-1] < loss[0])
+        check(np.all(np.isfinite(loss)) and (fell or key not in proposed),
+              f"scenario {name} {key}: loss {loss.tolist()}")
+        rows.append(dict(key=key, scheme=log["scheme"], eta=log["eta"],
+                         seconds=timed["seconds"], launches=timed["launches"],
+                         loss_first=float(loss[0]), loss_final=float(loss[-1]),
+                         loss_fell=fell, final_accuracy=log["acc_mean"][-1]))
+    check(counts == total, f"scenario {name}: launches {counts} against the "
+          f"schemes' {total}")
+    payload = rs.cell(0).payload
+    emit(phase="scenario", run=name, cell_hash=rs.cell(0).cell_hash,
+         n_devices=spec.n_devices, d=build_task(spec).dim,
+         rounds=spec.run.rounds, trials=spec.run.trials,
+         etas=list(spec.run.etas), kappa=payload["kappa"],
+         design=payload["design"], seconds=seconds,
+         materialize_s=clock.materialize_s, design_s=clock.design_s,
+         schemes=rows, launches={k: v for k, v in counts.items() if v})
+    # the same spec again into the same directory: a cache no-op
+    manifest = json.loads((out / "manifest.json").read_text())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = execute(spec, out_dir=out)
+    rerun_s = time.perf_counter() - t0
+    relaunched = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(again.all_cached and not relaunched,
+          f"scenario {name} re-run: statuses "
+          f"{[c.status for c in again]}, launches {relaunched}")
+    check(manifest_sans_timings(json.loads(
+        (out / "manifest.json").read_text()))
+          == manifest_sans_timings(manifest),
+          f"scenario {name} re-run: the manifest changed")
+    emit(phase="scenario_cached", run=name, seconds=rerun_s, all_cached=True,
+         launches=0, manifest_equal=True)
+    return counts
+
+
+def logs_agree(name, card, cpu, rtol, gate):
+    """Card and CPU results of one executed spec: the same hashes, eta
+    and wall-clocks (within 8 ulps: the digital latencies go through log),
+    design objectives within SCENARIO_OBJ_RTOL, loss and accuracy
+    trajectories within ``rtol``; with ``gate`` also the mean loss within
+    4 combined standard errors of the trial means (a floor of ceil(log2 n)
+    f32 ulps where no trial spreads). Returns the largest gaps."""
+    import numpy as np
+    worst = {"loss": 0.0, "objective": 0.0}
+    for ca, cb in zip(card, cpu):
+        check(ca.cell_hash == cb.cell_hash, f"{name}: cell hashes differ")
+        for fam, d in ca.payload["design"].items():
+            for k in ("objective", "objective_direct"):
+                if k in d:
+                    rel = abs(d[k] - cb.payload["design"][fam][k]) / abs(
+                        cb.payload["design"][fam][k])
+                    worst["objective"] = max(worst["objective"], rel)
+                    check(rel <= SCENARIO_OBJ_RTOL,
+                          f"{name}: {fam} {k} differs by {rel}")
+        spec = ca.payload["scenario"]
+        n = spec["wireless"]["n_devices"] * spec["data"]["samples_per_device"]
+        trials = spec["run"]["trials"]
+        for la, lb in zip(ca.logs, cb.logs):
+            wa, wb = np.asarray(la["wall_time_s"]), np.asarray(
+                lb["wall_time_s"])
+            ulps = float(np.max(np.abs(wa - wb) / np.spacing(
+                np.maximum(wb, 1e-300))))
+            check(la["eta"] == lb["eta"] and ulps <= 8,
+                  f"{name} {la['scheme_key']}: eta {la['eta']} vs "
+                  f"{lb['eta']}, wall-clocks {ulps} ulps apart")
+            for k in ("loss_mean", "acc_mean"):
+                a, b = np.asarray(la[k]), np.asarray(lb[k])
+                rel = float(np.max(np.abs(a - b) / np.abs(b)))
+                check(rel <= rtol, f"{name} {la['scheme_key']}: {k} "
+                      f"differs by {rel} relative (limit {rtol})")
+                if k == "loss_mean":
+                    worst["loss"] = max(worst["loss"], rel)
+            if gate:
+                sa, sb = np.asarray(la["loss_std"]), np.asarray(lb["loss_std"])
+                a, b = np.asarray(la["loss_mean"]), np.asarray(lb["loss_mean"])
+                stderr = np.sqrt((sa ** 2 + sb ** 2) / (trials - 1))
+                floor = np.ceil(np.log2(n)) * np.spacing(
+                    np.float32(b)).astype(np.float64)
+                check(np.all(np.abs(a - b) <= 4 * stderr + floor),
+                      f"{name} {la['scheme_key']}: outside the 4-sigma "
+                      f"gate: {np.abs(a - b).tolist()} vs "
+                      f"{stderr.tolist()}")
+    return worst
+
+
+def scenario_vs_cpu():
+    """``sweep_smoke`` and a two-scheme Fig. 2 digital quick spec (kappa
+    fixed at 3, where the batched digital design is well conditioned;
+    rounds cut to 40) on the card against the CPU, within the tests'
+    tolerances."""
+    from repro_torch.api import execute, scenarios
+    digital = scenarios.fig2_digital_sc(quick=True)
+    for path, value in (("run.rounds", 40), ("design.kappa", 3.0),
+                        ("schemes", ("proposed_digital", "best_channel"))):
+        digital = digital.override(path, value)
+    for name, spec, rtol, gate in (
+            ("sweep_smoke", scenarios.sweep_smoke(), SCENARIO_OTA_RTOL,
+             False),
+            ("fig2_digital_sc quick, kappa 3", digital, SCENARIO_DIG_RTOL,
+             True)):
+        t0 = time.perf_counter()
+        card = execute(spec, save=False, force=True)
+        card_s = time.perf_counter() - t0
+        cpu = execute(spec, save=False, force=True, device="cpu")
+        worst = logs_agree(name, card, cpu, rtol, gate)
+        emit(phase="scenario_vs_cpu", run=name, cells=len(card),
+             card_s=card_s, max_rel_loss_diff=worst["loss"],
+             max_rel_objective_diff=worst["objective"], limit=rtol,
+             objective_limit=SCENARIO_OBJ_RTOL, four_sigma_gate=gate)
+
+
+def scenario_cli():
+    """The command line on the card: ``run sweep_smoke --out DIR`` exits
+    0, then ``--expect-cached`` exits 0, then ``--jobs 2 --force`` gives
+    the serial manifest but for timings."""
+    import os
+    import shutil
+    out = SCENARIO_OUT / "cli_sweep_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    lines = {}
+    manifests = {}
+    for step, extra in (("serial", []), ("expect_cached",
+                                         ["--expect-cached"]),
+                        ("jobs_2", ["--jobs", "2", "--force"])):
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "repro_torch.api.cli", "run",
+             "sweep_smoke", "--out", str(out), *extra], capture_output=True,
+            text=True, env=env, timeout=600)
+        check(done.returncode == 0,
+              f"cli {step}: exit {done.returncode}\n{done.stdout[-2000:]}\n"
+              f"{done.stderr[-4000:]}")
+        lines[step] = dict(seconds=time.perf_counter() - t0,
+                           summary=done.stdout.strip().splitlines()[-1])
+        manifests[step] = json.loads((out / "manifest.json").read_text())
+    check("4 computed" in lines["serial"]["summary"]
+          and "4 cached" in lines["expect_cached"]["summary"]
+          and "4 computed" in lines["jobs_2"]["summary"],
+          f"cli summaries {lines}")
+    same = (manifest_sans_timings(manifests["jobs_2"])
+            == manifest_sans_timings(manifests["serial"]))
+    check(same, "cli: --jobs 2 gave another manifest than the serial run")
+    emit(phase="scenario_cli", steps=lines, jobs_2_manifest_equal=True)
+
+
+def scenario_phase():
+    """The scenario layer on the card (``repro_torch.api.execute``): the
+    paper's Fig. 2 OTA (N = 50, 30 rounds), Fig. 2 digital (N = 10, 40
+    rounds) and Fig. 3 (d = 147,994, 20 rounds) at full width as
+    ``ScenarioSpec``s, each with a cached re-run; then the card against
+    the CPU and the command line. Returns the three runs' launches."""
+    from repro_torch.api import scenarios
+    launches = {}
+    for name, spec, proposed in (
+            ("fig2_ota_sc", scenarios.fig2_ota_sc(quick=False).override(
+                "run.rounds", 30), ("proposed_ota", "proposed_ota_direct")),
+            ("fig2_digital_sc", scenarios.fig2_digital_sc(
+                quick=False).override("run.rounds", 40),
+             ("proposed_digital", "proposed_digital_direct")),
+            ("fig3_nonconvex", scenarios.fig3_nonconvex(
+                quick=False).override("run.rounds", 20), ("proposed_ota",))):
+        for k, v in scenario_run(name, spec, proposed).items():
+            launches[k] = launches.get(k, 0) + v
+        free_card()
+    scenario_vs_cpu()
+    scenario_cli()
+    return launches
+
+
 MAMBA = "falcon-mamba-7b"
 RGEMMA = "recurrentgemma-2b"
 # each served model: the kernel of its prefill, the layer kind that
@@ -2100,7 +2438,14 @@ def main() -> int:
     fig3_matches_cpu()
     free_card()
 
-    # 6. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
+    # 6. the scenario layer: Fig. 2 and Fig. 3 as ScenarioSpecs through
+    # execute on the card, each re-run from its cache; the card against
+    # the CPU; the command line
+    for k, v in scenario_phase().items():
+        launches[k] = launches.get(k, 0) + v
+    free_card()
+
+    # 7. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
     # its plain version at full width cut to one pattern, the card against
     # the CPU at the reduced sizes, then the main path at full width and
     # depth
@@ -2110,7 +2455,7 @@ def main() -> int:
         for k, v in serve_full(arch).items():
             launches[k] = launches.get(k, 0) + v
 
-    # 7. FL-LM training: the collective's kernel route against its plain
+    # 8. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
     # on the card against the CPU, then the main path at full width and
     # depth
@@ -2119,7 +2464,7 @@ def main() -> int:
     for k, v in train_full().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 8. the kernel table at the main path's shapes and types (launches:
+    # 9. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``repro`` (biased FL under wireless heterogeneity).
 
 Mirrors the JAX package's layout (``core/``, ``data/``, ``fl/``,
-``kernels/``) and imports neither JAX nor ``repro``: the hot ops of the
+``kernels/``, ``api/``) and imports neither JAX nor ``repro``: the hot ops of the
 main path run as hand-written CUDA kernels for Hopper
 (``kernels/csrc/``), everything else as plain PyTorch. Entry points take
 an explicit ``device`` and default to the card.

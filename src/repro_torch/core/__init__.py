@@ -12,6 +12,8 @@
                 direct solvers, the batched wrappers
   baselines   — the Sec. V schemes
   collectives — wireless_psum, the FL-LM train step's aggregation
+  faults / async_fl — the fault and buffered-async layers' specs and
+                static tables (host NumPy; their rounds come later)
 """
 from .channel import (WirelessConfig, Deployment, FadingProcess,
                       make_deployment)

@@ -106,3 +106,12 @@ class FadingProcess:
     def gains(self, t: int) -> np.ndarray:
         """|h_{m,t}| magnitudes for round t."""
         return np.abs(self.sample(t))
+
+
+def participation_probability(threshold: np.ndarray,
+                              lambdas: np.ndarray) -> np.ndarray:
+    """P(|h_m| >= threshold_m) = exp(-threshold^2/Lambda) under Rayleigh
+    fading; the fault layer's deep-fade survival term
+    (``core.faults.survival_prob``)."""
+    thr = np.asarray(threshold, dtype=np.float64)
+    return np.exp(-(thr ** 2) / np.asarray(lambdas, dtype=np.float64))

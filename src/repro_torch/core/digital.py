@@ -10,6 +10,7 @@ R_m = log2(1 + E_s rho_m^2 / N0), L_m = 64 + d r_m bits.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -58,6 +59,26 @@ class DigitalParams:
         rates = np.maximum(self.rates(), 1e-12)
         return float(np.sum(self.betas(lambdas) * self.payloads()
                             / (self.bandwidth_hz * rates)))
+
+
+def lemma2_variance(params: DigitalParams, lambdas: np.ndarray,
+                    sigma_sq: Optional[np.ndarray] = None) -> dict:
+    """Lemma 2 variance bound, decomposed into its three terms (host
+    NumPy, as ``repro.core.digital.lemma2_variance``)."""
+    beta = params.betas(lambdas)
+    p = beta / params.nus
+    g2 = params.g_max ** 2
+    transmission = float(np.sum(p ** 2 * g2 * (1.0 / beta - 1.0)))
+    minibatch = (0.0 if sigma_sq is None
+                 else float(np.sum(p ** 2 * np.asarray(sigma_sq))))
+    s = (2.0 ** params.r_bits.astype(np.float64) - 1.0) ** 2
+    quant = float(np.sum(p ** 2 * g2 * params.dim / (beta * s)))
+    return {
+        "transmission": transmission,
+        "minibatch": minibatch,
+        "quantization": quant,
+        "total": transmission + minibatch + quant,
+    }
 
 
 def digital_round(params: DigitalParams, grads: torch.Tensor,

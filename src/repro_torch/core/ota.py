@@ -9,6 +9,7 @@ The PS epilogue runs through the CUDA kernel ``kernels/csrc/ota_combine.cu``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,6 +54,26 @@ def gamma_m_max(lambdas: np.ndarray, dim: int, e_s: float,
                 g_max: float) -> np.ndarray:
     """argmax_gamma alpha_m(gamma) = sqrt(d Lambda E_s / (2 G^2)) (Sec. IV-A)."""
     return np.sqrt(np.asarray(lambdas) * dim * e_s / (2.0 * g_max ** 2))
+
+
+def lemma1_variance(params: OTAParams, lambdas: np.ndarray,
+                    sigma_sq: Optional[np.ndarray] = None) -> dict:
+    """Lemma 1 variance bound, decomposed into its three terms (host
+    NumPy, as ``repro.core.ota.lemma1_variance``)."""
+    a_m = params.alpha_m(lambdas)
+    p = a_m / params.alpha
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.where(a_m > 0, params.gammas / a_m, 1.0)
+    transmission = float(np.sum(p ** 2 * params.g_max ** 2 * (ratio - 1.0)))
+    minibatch = (0.0 if sigma_sq is None
+                 else float(np.sum(p ** 2 * np.asarray(sigma_sq))))
+    noise = float(params.dim * params.noise_psd / params.alpha ** 2)
+    return {
+        "transmission": transmission,
+        "minibatch": minibatch,
+        "noise": noise,
+        "total": transmission + minibatch + noise,
+    }
 
 
 def ota_round(params: OTAParams, grads: torch.Tensor, habs: torch.Tensor,

@@ -55,6 +55,10 @@ class TrainLog:
     accuracy: np.ndarray        # (trials, T_eval)
     opt_error: Optional[np.ndarray] = None   # ||w_t - w*||^2 if w* known
 
+    def mean_std(self, field: str):
+        v = getattr(self, field)
+        return v.mean(axis=0), v.std(axis=0)
+
     def final_accuracy(self) -> float:
         return float(self.accuracy[:, -1].mean())
 

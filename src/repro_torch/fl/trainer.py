@@ -1,4 +1,4 @@
-"""FL training entry point (counterpart of ``repro.fl.trainer.FLTrainer``).
+"""FL training entry point (counterpart of ``repro.fl.trainer``).
 
 Matches Sec. V's protocol: a fixed device deployment across trials,
 independent fading and PS noise per trial, full-batch local gradients,
@@ -6,14 +6,22 @@ projection onto the ball {||w|| <= D/2} when ``project_radius`` is set,
 and per-round latency accounting (OTA: d/B; digital: realized TDMA time),
 with an optional wall-clock budget. Runs on the trials-batched engine
 (``fl.engine.FLEngine``) on ``device`` (default: the card).
+
+``FLTrainer`` takes the reference's arguments. The partial-participation
+and buffered-async knobs are no-ops at their defaults, as there;
+anything that would turn a layer on raises ``NotImplementedError``
+naming ROADMAP Queue 1 item 9 (``fl.engine.check_slice``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ..core.async_fl import MODES
 from ..core.channel import Deployment
+from ..device import resolve_device
 from .engine import FLEngine, TrainLog
 
 
@@ -23,7 +31,24 @@ class FLTrainer:
                  batch_size: Optional[int] = None,
                  payload_dtype: str = "f32", fault=None,
                  clients_per_round: Optional[int] = None,
-                 mode: str = "sync", device=None):
+                 participation: str = "uniform",
+                 participation_probs=None, mode: str = "sync",
+                 async_spec=None, async_weights=None, device=None):
+        if payload_dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f"payload_dtype must be 'f32' or 'bf16', got {payload_dtype!r}")
+        if mode not in MODES:
+            raise ValueError(f"run mode must be one of {MODES}, got {mode!r}")
+        # the reference's strict no-ops: without clients_per_round the
+        # sampling policy is inert, under mode="sync" the async spec is
+        if clients_per_round is None and participation_probs is not None:
+            raise ValueError(
+                "participation_probs given but clients_per_round is None; "
+                "set clients_per_round to enable partial participation")
+        if mode == "sync" and async_weights is not None:
+            raise ValueError(
+                "async_weights given but run mode is 'sync'; set "
+                "mode='async' to enable buffered-async aggregation")
         self.eta = eta
         self.project_radius = project_radius
         self._engine = FLEngine(
@@ -35,12 +60,38 @@ class FLTrainer:
             eval_every: int = 10, seed: int = 0,
             w_star: Optional[np.ndarray] = None,
             time_budget_s: Optional[float] = None,
-            rng: str = "replay") -> TrainLog:
+            backend: str = "auto", rng: str = "replay") -> TrainLog:
         """Run the Monte-Carlo FL protocol; the log's fields are the
-        reference's (``repro.fl.trainer.TrainLog``)."""
+        reference's (``repro.fl.trainer.TrainLog``). The port has one
+        engine, so ``backend`` is "auto" only."""
+        if backend != "auto":
+            raise ValueError(
+                f"backend={backend!r}: the port has one engine (FLEngine on "
+                "the trainer's device); pass backend='auto'")
+        if rng not in ("replay", "fast"):
+            raise ValueError(f"rng must be 'replay' or 'fast', got {rng!r}")
         engine = self._engine
         # eta / radius may be retuned between runs (step-size searches)
         engine.eta, engine.project_radius = self.eta, self.project_radius
         return engine.run(aggregator, rounds=rounds, trials=trials,
                           eval_every=eval_every, seed=seed, w_star=w_star,
                           time_budget_s=time_budget_s, rng=rng)
+
+
+def solve_w_star(task, x_all: np.ndarray, y_all: np.ndarray,
+                 iters: int = 4000, eta: Optional[float] = None,
+                 device=None) -> torch.Tensor:
+    """Minimizer w* of the (strongly convex) global objective by
+    full-batch GD, on ``device`` (default: the card): the iterate in f64,
+    each gradient in f32 from the f32-cast iterate, widened to f64, as
+    the reference's ``solve_w_star`` through its task. Returns the (d,)
+    f64 iterate on the device."""
+    dev = resolve_device(device)
+    w = task.init_params(device=dev)
+    eta = eta if eta is not None else 2.0 / (task.mu + task.smooth_l)
+    xs = torch.as_tensor(np.asarray(x_all, np.float32), device=dev)[None]
+    ys = torch.as_tensor(np.asarray(y_all, np.int64), device=dev)[None]
+    for _ in range(iters):
+        g = task.device_grads(w.to(torch.float32), xs, ys)[0]
+        w = w - eta * g.to(torch.float64)
+    return w

@@ -25,7 +25,12 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.models.transformer", "repro.models.api",
                "repro.kernels.ref", "repro.core.collectives",
                "repro.launch.mesh", "repro.launch.steps", "repro.optim.sgd",
-               "repro.checkpoint.ckpt")
+               "repro.checkpoint.ckpt", "repro.core.faults",
+               "repro.core.async_fl", "repro.core.participation",
+               "repro.api.results", "repro.api.spec", "repro.api.schemes",
+               "repro.api.scenarios", "repro.api.plan",
+               "repro.api.materialize", "repro.api.execute",
+               "repro.api.cli")
 
 
 @pytest.fixture(scope="module")
