@@ -98,7 +98,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
    within the tests' tolerances; ``python -m repro_torch.api.cli run
    sweep_smoke`` on the card, then ``--expect-cached``, then ``--jobs 2
    --force`` with the serial manifest but for timings;
-7. serve (``repro_torch.launch.serve.serve``), random weights from a
+7. layers — the fault, partial-participation and buffered-async layers
+   (``fl.engine``, plain torch on the card; no kernel of their own):
+     (a) through ``FLTrainer`` at Fig. 2 / Fig. 3 full width, 4 trials:
+     ProposedOTA (N = 50, 30 rounds, the design of phase 4) under the
+     fault layer (dropout 0.2, erasure 0.05, stragglers 0.1 x 3, a
+     deadline of twice a round's airtime) once for each ``on_missing``
+     policy, under sampling of S = 16 (uniform, channel, and the
+     probabilities ``solve_participation_batch`` designs on the card),
+     under async with K = 4 (zero fill; "stale" on the weights
+     ``solve_async_batch`` designs), all three stacked, and with every
+     layer at its default, which must give phase 5's run bit for bit;
+     ProposedDigital (N = 10, 40 rounds) under faults ("zero") and
+     sampling (S = 6); Fig. 3 ProposedDigital (d = 147,994, the fused
+     route, 20 rounds) under faults. Each run: launch counts exactly its
+     route's (one ``ota_combine``, one ``dithered_quantize_rows``, or one
+     ``quantize_pack_rows`` and one ``packed_weighted_sum`` a round,
+     nothing else), the plain versions' trajectory to the bit, the CPU
+     run within 1e-5 (OTA) or 1e-3 and the 4-sigma gate (digital; Fig.
+     3's over 2 trials of 6 rounds), launches and host ms per round, and
+     from a profiled run every launch and the device ms per round; the
+     layers' uniforms for a whole run made on the card equal the CPU's
+     to the bit;
+     (b) ``sweep_fault`` (9 cells), ``sweep_participation`` (8) and
+     ``sweep_async`` (9 of its 27: the rate spread left at the base's
+     3.0, since each cell's designed weights take a co-design solve of
+     about 10 s on the card) at ``quick=False`` widths, 20 of 100
+     rounds, through ``execute``: the seconds of data + kappa, of each
+     design group and of the schemes; each scheme's launches exactly as derived
+     (the counts at 0 before each execute); finite losses, and Proposed
+     OTA's falling in each cell or, where the step-size search lets it
+     rise, the same cell on the CPU rising with it within 1e-5; each
+     re-run all cached, with no launch and the same manifest but for
+     timings; then ``python -m repro_torch.api.cli run sweep_async --jobs
+     4`` (the quick spec) once;
+8. serve (``repro_torch.launch.serve.serve``), random weights from a
    seed, for falcon-mamba-7b (the selective scan on its CUDA kernel) and
    recurrentgemma-2b (the RG-LRU recurrence on the linear-scan kernel,
    local attention over the KV ring buffer):
@@ -117,7 +151,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly one scan launch a recurrent
      layer in the prefill (64, 18) and none in decode, finite logits;
      prefill and decode tokens/s and the peak memory;
-8. FL-LM training (``repro_torch.launch.train``, the wireless collective
+9. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
      against its plain route on the same per-client gradients, bit-equal
@@ -132,7 +166,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
      every launch on the card and the device time a step;
-9. the kernel table, nvidia-smi's line, and the result line.
+10. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
 import gc
@@ -1039,7 +1073,7 @@ def run_path(name, trainer, engine_plain, agg, expect, bites=False,
     slots; with ``bites=None`` it may or may not (the figure's budget over
     a baseline whose airtime depends on the draws). ``must_fall``: the
     loss must fall over the run (the proposed schemes); a baseline's must
-    only be finite."""
+    only be finite. Returns (launches, log)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1089,7 +1123,7 @@ def run_path(name, trainer, engine_plain, agg, expect, bites=False,
          accuracy=log.accuracy.mean(0).tolist(),
          final_accuracy=log.final_accuracy(),
          wall_time_s=wall.tolist(), plain_equal=True)
-    return counts
+    return counts, log
 
 
 def dither_matches_cpu(trials, n, d, rounds):
@@ -1319,7 +1353,8 @@ class ScenarioClock:
             self.schemes.append(dict(scheme=a[1].name, seconds=s,
                                      launches={k: v for k, v in
                                                launches.items() if v},
-                                     all_launches=launches, eta=out[1]))
+                                     all_launches=launches, eta=out[1],
+                                     cell_hash=a[0].scenario.spec_hash()))
 
         mat.materialize = timed(materialize, on_mat)
         ex._solve_group = timed(solve, on_design)
@@ -1547,6 +1582,401 @@ def scenario_phase():
         free_card()
     scenario_vs_cpu()
     scenario_cli()
+    return launches
+
+
+# --------------------------------------------------------------- layers
+
+LAYER_FAULT = dict(dropout_prob=0.2, erasure_prob=0.05, straggler_prob=0.1,
+                   straggler_mult=3.0)
+LAYER_OTA_RTOL = 1e-5        # OTA trajectories, card against the CPU
+LAYER_DIG_RTOL = 1e-3        # digital trajectories (dither code flips)
+
+
+def layer_streams_match_cpu(seed, trials, rounds, n):
+    """The three layers' uniforms for a whole run made on the card against
+    the CPU's, bit for bit (the tests tie the CPU streams to JAX's)."""
+    import torch
+    from repro_torch.core import rngstream
+    for name, blocks, base in (
+            ("fault", rngstream.fault_blocks, rngstream.fault_base_key),
+            ("participation", rngstream.participation_blocks,
+             rngstream.participate_base_key),
+            ("arrival", rngstream.arrival_blocks,
+             rngstream.arrival_base_key)):
+        keys = [base(seed, tr) for tr in range(trials)]
+        card = blocks(keys, rounds, n, device="cuda")
+        cpu = blocks(keys, rounds, n, device="cpu")
+        check(torch.equal(card.cpu(), cpu),
+              f"{name} uniforms on the card != CPU, ({trials}, {rounds}, {n})")
+    emit(phase="layer_streams_vs_cpu", seed=seed, trials=trials,
+         rounds=rounds, n_devices=n, bit_equal=True)
+
+
+def describe_layers(kw) -> dict:
+    """A run's layer options as JSON."""
+    out = {}
+    for k, v in kw.items():
+        if dataclasses.is_dataclass(v):
+            v = dataclasses.asdict(v)
+        elif hasattr(v, "tolist"):
+            v = v.tolist()
+        out[k] = v
+    return out
+
+
+def layers_run(name, setup, agg, layer_kw, expect, run, rtol, gate,
+               cpu_run=None):
+    """One scheme under layer options ``layer_kw`` through ``FLTrainer``
+    on the card: the launch counts at 0 before the run and exactly
+    ``expect`` (every kernel) after it, finite losses, the same run on
+    the plain versions bit-equal, and the same run (or ``cpu_run``) on
+    the CPU within ``rtol`` relative (with ``gate`` also the mean loss within 4 combined
+    standard errors, a floor of ceil(log2 n) f32 ulps); host ms and launches per round, and from one more
+    run under the profiler every launch and the device ms per round (the
+    idle share against the unprofiled run's host time). Returns
+    (launches, log)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fl import FLEngine, FLTrainer
+    task, ds, dep, eta = setup
+    trainer = FLTrainer(task, ds, dep, eta, **layer_kw)
+    trainer.run(agg, **{**run, "rounds": 2, "eval_every": 1})   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    log = trainer.run(agg, **run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(expect)
+    check(counts == want, f"layers {name}: launches {counts}, expected {want}")
+    loss = log.global_loss
+    check(np.all(np.isfinite(loss)), f"layers {name}: loss not finite")
+    # the same run once more under the profiler: every launch on the card
+    # (the task, the layers, the scheme, the eval) and the device time
+    all_launches, copies, device_ms = launches_of(
+        lambda: trainer.run(agg, **run))
+    plain = FLEngine(task, ds, dep, eta, use_kernel=False,
+                     **layer_kw).run(agg, **run)
+    check(np.array_equal(plain.global_loss, loss)
+          and np.array_equal(plain.accuracy, log.accuracy)
+          and np.array_equal(plain.wall_time_s, log.wall_time_s),
+          f"layers {name}: kernel and plain trajectories differ")
+    # against the CPU at ``cpu_run`` (a shorter run where the CPU's would
+    # take long), the card running it again
+    cmp_run = run if cpu_run is None else cpu_run
+    card = log if cpu_run is None else trainer.run(agg, **cpu_run)
+    cpu = FLTrainer(task, ds, dep, eta, device="cpu",
+                    **layer_kw).run(agg, **cmp_run)
+    card_loss = card.global_loss
+    rel = float(np.max(np.abs(card_loss - cpu.global_loss)
+                       / np.abs(cpu.global_loss)))
+    ulps = float(np.max(np.abs(card.wall_time_s - cpu.wall_time_s)
+                        / np.spacing(np.maximum(cpu.wall_time_s, 1e-300))))
+    check(rel <= rtol and ulps <= 8,
+          f"layers {name}: card vs CPU loss differs by {rel} relative (limit "
+          f"{rtol}) or wall-clock by {ulps} ulps (limit 8)")
+    if gate:
+        # where no trial spreads (round 0) the floor is the f32 rounding
+        # of the loss, a mean over n samples the card and the CPU add in
+        # other orders: ceil(log2 n) ulps of it
+        n = sum(len(dd) for dd in ds.devices)
+        stderr = np.sqrt((card_loss.var(0) + cpu.global_loss.var(0))
+                         / (cmp_run["trials"] - 1))
+        cpu_mean = cpu.global_loss.mean(0)
+        floor = np.ceil(np.log2(n)) * np.spacing(
+            np.float32(cpu_mean)).astype(np.float64)
+        gap = np.abs(card_loss.mean(0) - cpu_mean)
+        check(np.all(gap <= 4.0 * stderr + floor),
+              f"layers {name}: outside the 4-sigma gate: {gap.tolist()} vs "
+              f"{stderr.tolist()} + {floor.tolist()}")
+    T = (run["rounds"] // run["eval_every"]) * run["eval_every"]
+    emit(phase="layers", run=name, scheme=log.scheme,
+         layers=describe_layers(layer_kw), rounds=run["rounds"],
+         trials=run["trials"], launches={k: v for k, v in counts.items() if v},
+         launches_per_round={k: v / T for k, v in counts.items() if v},
+         seconds=seconds, host_ms_per_round=1e3 * seconds / T,
+         profiled_launches_per_round=all_launches / T,
+         profiled_copies=copies, device_ms_per_round=device_ms / T,
+         device_idle=1.0 - device_ms / (1e3 * seconds),
+         loss=loss.mean(0).tolist(),
+         loss_fell=bool(loss[:, -1].mean() < loss[:, 0].mean()),
+         wall_time_s=log.wall_time_s.tolist(), plain_equal=True,
+         max_rel_loss_diff_vs_cpu=rel, limit=rtol,
+         wall_time_max_ulps_vs_cpu=ulps, four_sigma_gate=gate,
+         vs_cpu_rounds=cmp_run["rounds"], vs_cpu_trials=cmp_run["trials"])
+    return counts, log
+
+
+def layers_engine_runs(ota_p, dig_p, phase5_log):
+    """Part (a): the layers on the main path's full-width runs. Fig. 2
+    ProposedOTA (N = 50, 30 rounds, the card's design) under the fault
+    layer (each ``on_missing`` policy, a deadline), partial participation
+    (S = 16: uniform, channel and the card's designed probabilities),
+    buffered async (K = 4: zero, stale, designed weights), all three
+    stacked and every layer at its default (which must give phase 5's
+    run bit for bit); Fig. 2 ProposedDigital (N = 10, 40 rounds) under
+    faults and sampling; Fig. 3 ProposedDigital (d = 147,994, 20 rounds,
+    the fused route; against the CPU over 2 trials of 6 rounds, since
+    the CPU's threefry dither at this width takes a minute for the whole
+    run) under faults. Returns the launches."""
+    import numpy as np
+    from repro_torch.core import async_fl, sca_torch
+    from repro_torch.core import baselines as B
+    from repro_torch.core.async_fl import AsyncSpec
+    from repro_torch.core.faults import FaultSpec
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    setup = fig2_setup(50, 6000)
+    task, ds, dep, eta = setup
+    n = dep.n_devices
+    weights = fig2_problem(n)[3].weights
+    ota = B.ProposedOTA(ota_p, label="Proposed OTA-FL (designed on the "
+                                     "card)")
+    levels = ota_p.participation_levels(dep.lambdas)
+    run = dict(rounds=30, trials=4, eval_every=10, seed=0)
+    layer_streams_match_cpu(run["seed"], run["trials"], run["rounds"], n)
+    # the deadline sits between a round's airtime d/B and a straggler's
+    deadline = 2.0 * task.dim / dep.cfg.bandwidth_hz
+    pi, _ = sca_torch.solve_participation_batch(
+        levels[None], np.ones((1, n)), [16], [weights.omega_var],
+        [weights.omega_bias])
+    spec_k4 = AsyncSpec(buffer_rounds=4, arrival_rate=0.55,
+                        rate_heterogeneity=3.0, staleness_discount=0.8,
+                        weighting="designed")
+    v, _ = sca_torch.solve_async_batch(
+        levels[None], async_fl.delivery_weight(spec_k4, n)[None],
+        async_fl.expected_staleness(spec_k4, n)[None], [weights.omega_var],
+        [weights.omega_bias])
+    emit(phase="layers_design", participation_probs=pi[0].tolist(),
+         async_weights=v[0].tolist())
+    ota_runs = [
+        *[(f"fault {p}", dict(fault=FaultSpec(
+            on_missing=p, deadline_s=deadline, **LAYER_FAULT)))
+          for p in ("reweight", "zero", "stale")],
+        ("participation uniform", dict(clients_per_round=16)),
+        ("participation channel", dict(clients_per_round=16,
+                                       participation="channel")),
+        ("participation designed", dict(
+            clients_per_round=16, participation="designed",
+            participation_probs=pi[0])),
+        ("async zero", dict(mode="async", async_spec=dataclasses.replace(
+            spec_k4, weighting="uniform"))),
+        ("async stale, designed", dict(
+            mode="async", async_weights=v[0],
+            async_spec=dataclasses.replace(spec_k4, on_missing="stale"))),
+        ("stacked", dict(
+            fault=FaultSpec(on_missing="stale", **LAYER_FAULT),
+            clients_per_round=16, participation="channel", mode="async",
+            async_spec=dataclasses.replace(spec_k4, weighting="uniform",
+                                           on_missing="stale"))),
+        ("defaults", dict(fault=FaultSpec(), clients_per_round=None,
+                          mode="sync"))]
+    for name, kw in ota_runs:
+        counts, log = layers_run(f"Fig. 2 ProposedOTA, {name}", setup, ota,
+                                 kw, {"ota_combine": 30}, run,
+                                 LAYER_OTA_RTOL, False)
+        add(counts)
+    check(np.array_equal(log.global_loss, phase5_log.global_loss)
+          and np.array_equal(log.accuracy, phase5_log.accuracy)
+          and np.array_equal(log.wall_time_s, phase5_log.wall_time_s),
+          "layers at their defaults: not phase 5's ProposedOTA run")
+    emit(phase="layers_defaults", equal_to_phase_5=True)
+    del setup, task, ds
+    free_card()
+
+    setup = fig2_setup(10, 1200)
+    dig = B.ProposedDigital(dig_p, label="Proposed Digital FL (designed on "
+                                         "the card)")
+    counts, _ = layers_run(
+        "Fig. 2 ProposedDigital, fault zero + participation", setup, dig,
+        dict(fault=FaultSpec(on_missing="zero", **LAYER_FAULT),
+             clients_per_round=6),
+        {"dithered_quantize_rows": 40},
+        dict(rounds=40, trials=4, eval_every=20, seed=0,
+             time_budget_s=150.0), LAYER_DIG_RTOL, True)
+    add(counts)
+    del setup
+    free_card()
+
+    task, ds, dep, eta, _, dig3 = fig3_setup()
+    counts, _ = layers_run(
+        "Fig. 3 ProposedDigital, fault zero", (task, ds, dep, eta),
+        B.ProposedDigital(dig3, label="Proposed Digital FL (uniform "
+                                      "anchor)"),
+        dict(fault=FaultSpec(on_missing="zero", **LAYER_FAULT)),
+        {"quantize_pack_rows": 20, "packed_weighted_sum": 20},
+        dict(rounds=20, trials=4, eval_every=10, seed=9), LAYER_DIG_RTOL,
+        True, cpu_run=dict(rounds=6, trials=2, eval_every=2, seed=9))
+    add(counts)
+    free_card()
+    return launches
+
+
+#: axes each sweep's card run leaves at the base spec's value, for the
+#: time limit: every sweep_async cell solves its designed weights once
+#: (about 10 s on the card, launch-bound), so its rate spread stays at
+#: 3.0, the base's, over K in {2, 4, 8} x discount in {0.6, 0.8, 1.0}
+SWEEP_FIXED = {"sweep_async": ("async_.rate_heterogeneity",)}
+
+
+def sweep_cut(name, rounds=20):
+    """A registered sweep at ``quick=False`` widths, its rounds cut (and
+    the axes of ``SWEEP_FIXED`` left at the base's value)."""
+    from repro_torch.api import scenarios
+    from repro_torch.api.spec import SweepSpec
+    sweep = scenarios.get(name, quick=False)
+    axes = {k: v for k, v in sweep.axes
+            if k not in SWEEP_FIXED.get(name, ())}
+    return SweepSpec(name=sweep.name, base=sweep.base.override(
+        "run.rounds", rounds), axes=axes)
+
+
+def sweep_run(name, spec):
+    """Part (b): one sweep through ``execute`` on the card into a fresh
+    directory with the launch counts at 0: the seconds of data + kappa,
+    of each design group and of each scheme; each scheme's launches
+    exactly as derived; finite losses, and proposed_ota's falling in
+    every cell or, where it does not, that cell's proposed_ota run on the
+    CPU rising with it within 1e-5 relative (the step-size search's
+    choice, not the card's); then the re-run from the cache: all cached,
+    no launch, the same manifest but for timings. Returns the launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import execute, schemes
+    from repro_torch.api.plan import plan
+    out = SCENARIO_OUT / name
+    shutil.rmtree(out, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ScenarioClock() as clock:
+        rs = execute(spec, out_dir=out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(all(c.status == "computed" for c in rs),
+          f"sweep {name}: statuses {[c.status for c in rs]}")
+    by_cell = {}
+    for timed in clock.schemes:
+        by_cell.setdefault(timed["cell_hash"], []).append(timed)
+    total = dict.fromkeys(counts, 0)
+    cells, rose = [], []
+    planned = plan(spec).cells
+    for cell in rs:
+        scenario = planned[cell.index].scenario
+        keys = schemes.expand_schemes(scenario.schemes)
+        timed_runs = by_cell[cell.cell_hash]
+        check(len(timed_runs) == len(keys),
+              f"sweep {name} cell {cell.index}: {len(timed_runs)} runs")
+        rows = []
+        for key, timed, log in zip(keys, timed_runs, cell.logs):
+            expect = scheme_launches(key, scenario)
+            check(timed["all_launches"] == expect,
+                  f"sweep {name} cell {cell.index} {key}: launches "
+                  f"{timed['launches']}, expected {expect}")
+            for k, v in expect.items():
+                total[k] += v
+            loss = np.asarray(log["loss_mean"])
+            check(np.all(np.isfinite(loss)),
+                  f"sweep {name} cell {cell.index} {key}: loss not finite")
+            fell = bool(loss[-1] < loss[0])
+            if key == "proposed_ota" and not fell:
+                rose.append((cell, scenario, log))
+            rows.append(dict(key=key, eta=log["eta"],
+                             seconds=timed["seconds"],
+                             loss_first=float(loss[0]),
+                             loss_final=float(loss[-1]), loss_fell=fell))
+        cells.append(dict(index=cell.index, overrides=cell.overrides,
+                          kappa=cell.payload["kappa"],
+                          objective=cell.payload["design"]["ota"][
+                              "objective"], schemes=rows))
+    check(counts == total, f"sweep {name}: launches {counts} against the "
+          f"schemes' {total}")
+    cpu_checked = []
+    for cell, scenario, log in rose:
+        alone = scenario.replace(schemes=("proposed_ota",))
+        cpu = execute(alone, save=False, force=True, device="cpu").cell(0)
+        lc = cpu.logs[0]
+        a, b = np.asarray(log["loss_mean"]), np.asarray(lc["loss_mean"])
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(lc["eta"] == log["eta"] and rel <= LAYER_OTA_RTOL,
+              f"sweep {name} cell {cell.index}: proposed_ota's loss rose "
+              f"({a[0]} -> {a[-1]}) and the CPU's differs: eta "
+              f"{lc['eta']} vs {log['eta']}, {rel} relative")
+        cpu_checked.append(dict(index=cell.index, max_rel_loss_diff=rel,
+                                eta=log["eta"], loss_final=float(a[-1])))
+    emit(phase="sweep", run=name, cells=len(rs), seconds=seconds,
+         rounds=spec.base.run.rounds, trials=spec.base.run.trials,
+         etas=list(spec.base.run.etas),
+         materialize_s=clock.materialize_s, design_s=clock.design_s,
+         schemes_s=sum(s["seconds"] for s in clock.schemes),
+         launches={k: v for k, v in counts.items() if v},
+         proposed_rose_cpu_checked=cpu_checked, per_cell=cells)
+    manifest = json.loads((out / "manifest.json").read_text())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = execute(spec, out_dir=out)
+    rerun_s = time.perf_counter() - t0
+    relaunched = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(again.all_cached and not relaunched,
+          f"sweep {name} re-run: statuses {[c.status for c in again]}, "
+          f"launches {relaunched}")
+    check(manifest_sans_timings(json.loads(
+        (out / "manifest.json").read_text()))
+          == manifest_sans_timings(manifest),
+          f"sweep {name} re-run: the manifest changed")
+    emit(phase="sweep_cached", run=name, seconds=rerun_s, all_cached=True,
+         launches=0, manifest_equal=True)
+    return counts
+
+
+def sweep_cli():
+    """``python -m repro_torch.api.cli run sweep_async --jobs 4`` (the
+    quick spec) on the card, once: exit 0 and every cell computed. Four
+    workers share the card: each cell's co-design solve is bound by its
+    launches, so they overlap."""
+    import os
+    import shutil
+    out = SCENARIO_OUT / "cli_sweep_async"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.api.cli", "run", "sweep_async",
+         "--out", str(out), "--jobs", "4"], capture_output=True, text=True,
+        env=env, timeout=600)
+    check(done.returncode == 0,
+          f"cli sweep_async: exit {done.returncode}\n{done.stdout[-2000:]}\n"
+          f"{done.stderr[-4000:]}")
+    summary = done.stdout.strip().splitlines()[-1]
+    check("8 computed" in summary, f"cli sweep_async: {summary}")
+    emit(phase="sweep_cli", run="sweep_async", seconds=time.perf_counter()
+         - t0, summary=summary)
+
+
+def layers_phase(ota_p, dig_p, phase5_log):
+    """The fault, participation and async layers on the card: the engine
+    runs of part (a), then ``sweep_fault``, ``sweep_participation`` and
+    ``sweep_async`` at full width (20 of 100 rounds) through ``execute``,
+    each re-run from its cache, and the command line. Returns the
+    launches."""
+    launches = layers_engine_runs(ota_p, dig_p, phase5_log)
+    for name in ("sweep_fault", "sweep_participation", "sweep_async"):
+        for k, v in sweep_run(name, sweep_cut(name)).items():
+            launches[k] = launches.get(k, 0) + v
+        free_card()
+    sweep_cli()
     return launches
 
 
@@ -2345,13 +2775,14 @@ def main() -> int:
 
     # 4. the design solver on the card; Fig. 2's designs feed the main path
     ota_p, dig_p = design_phase()
+    designed = (ota_p, dig_p)
     free_card()
 
     # 5. the main paths: Fig. 2 and Fig. 3 at full width
-    launches = {}
+    launches, main_logs = {}, {}
 
     def main_run(*args, **kw):
-        counts = run_path(*args, **kw)
+        counts, main_logs[args[0]] = run_path(*args, **kw)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -2445,7 +2876,14 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     free_card()
 
-    # 7. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
+    # 7. the fault, participation and async layers: the main path's runs
+    # under each, then the three robustness sweeps through execute
+    for k, v in layers_phase(*designed,
+                             main_logs["Fig. 2 ProposedOTA"]).items():
+        launches[k] = launches.get(k, 0) + v
+    free_card()
+
+    # 8. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
     # its plain version at full width cut to one pattern, the card against
     # the CPU at the reduced sizes, then the main path at full width and
     # depth
@@ -2455,7 +2893,7 @@ def main() -> int:
         for k, v in serve_full(arch).items():
             launches[k] = launches.get(k, 0) + v
 
-    # 8. FL-LM training: the collective's kernel route against its plain
+    # 9. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
     # on the card against the CPU, then the main path at full width and
     # depth
@@ -2464,7 +2902,7 @@ def main() -> int:
     for k, v in train_full().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 9. the kernel table at the main path's shapes and types (launches:
+    # 10. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

@@ -6,9 +6,10 @@
 
 0. **Slice check** — every cell's run options go through the engine's
    ``check_slice`` before anything is solved or written: a scenario that
-   needs a layer the port has not yet (faults, partial participation,
-   async, mini-batches) raises ``NotImplementedError`` naming ROADMAP
-   Queue 1 item 9.
+   needs what the port's engine does not run yet (mini-batches, as
+   ``fig2_batch`` does, or ``rng="fast"``) raises
+   ``NotImplementedError`` naming ROADMAP Queue 1 item 9. The fault,
+   participation, async and bf16-payload layers run.
 1. **Cache check** — each cell's content hash (spec + schema version) is
    looked up under ``<out_dir>/cells/<hash>.json``; hits short-circuit the
    whole cell (no design solve, no simulation). The default ``out_dir``
@@ -99,11 +100,8 @@ def _check_supported(pl: Plan) -> None:
     the port's engine does not run yet (``fl.engine.check_slice``) or a
     backend it does not have."""
     for cell in pl.cells:
-        sc = cell.scenario
-        r = sc.run
-        check_slice(batch_size=r.batch_size, payload_dtype=r.payload_dtype,
-                    fault=sc.fault, clients_per_round=r.clients_per_round,
-                    mode=r.mode, rng=r.rng)
+        r = cell.scenario.run
+        check_slice(batch_size=r.batch_size, rng=r.rng)
         if r.backend != "auto":
             raise ValueError(
                 f"cell {cell.index}: run.backend={r.backend!r}; the port "

@@ -4,10 +4,9 @@
 Each builder returns the reference's pure-data ``ScenarioSpec``/
 ``SweepSpec`` (same seeds, sizes, suites, tuning grids, hence the same
 ``spec_hash``). ``REGISTRY`` backs the CLI
-(``python -m repro_torch.api.cli run/list/describe``). ``sweep_fault``,
-``sweep_participation``, ``sweep_async`` and ``fig2_batch`` need engine
-layers the port has not yet; ``api.execute`` refuses them, naming ROADMAP
-Queue 1 item 9.
+(``python -m repro_torch.api.cli run/list/describe``). ``fig2_batch``
+needs mini-batches, which the port's engine does not run yet;
+``api.execute`` refuses it, naming ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -125,8 +124,7 @@ def sweep_fault(quick: bool = True, n_devices: int = 10) -> SweepSpec:
     sees the outage-adjusted effective channel statistics — against the
     zero-bias Vanilla OTA baseline. The thesis cell-by-cell: biased
     designs degrade gracefully with rising fault rates where zero-bias
-    aggregation collapses. Needs the fault layer (ROADMAP Queue 1
-    item 9).
+    aggregation collapses.
     """
     base = ScenarioSpec(
         name="sweep_fault",
@@ -165,8 +163,7 @@ def sweep_participation(quick: bool = True, n_devices: int = 50) -> SweepSpec:
     operating point (``omega_bias_scale`` shrinks the footnote-4 bias
     weight — the declared bias-variance trade-off axis): there the
     extra delivered mass outweighs the tilt, and designed sampling
-    strictly beats uniform at equal airtime. Needs the fault and
-    participation layers (ROADMAP Queue 1 item 9).
+    strictly beats uniform at equal airtime.
     """
     base = ScenarioSpec(
         name="sweep_participation",
@@ -210,7 +207,6 @@ def sweep_async(quick: bool = True, n_devices: int = 10) -> SweepSpec:
     ``core.sca_torch.solve_async_batch`` (``async_.weighting="designed"``)
     that re-balance the effective participation p_m * c_m * v_m the
     Theorem-1/2 bound prices (``bounds.async_effective_participation``).
-    Needs the async layer (ROADMAP Queue 1 item 9).
     """
     base = ScenarioSpec(
         name="sweep_async",

@@ -1,7 +1,8 @@
 """Core library of the port: the paper's biased wireless-FL contribution.
 
   channel     — deployment geometry, path loss, Rayleigh fading (NumPy)
-  rngstream   — threefry dither stream, bit-equal to the reference
+  rngstream   — threefry dither and layer streams, bit-equal to the
+                reference
   ota         — biased OTA aggregation (Sec. II-A)
   digital     — biased digital aggregation (Sec. II-B)
   quantize    — digital payload size
@@ -12,8 +13,9 @@
                 direct solvers, the batched wrappers
   baselines   — the Sec. V schemes
   collectives — wireless_psum, the FL-LM train step's aggregation
-  faults / async_fl — the fault and buffered-async layers' specs and
-                static tables (host NumPy; their rounds come later)
+  faults / participation / async_fl — the engine's fault, client-sampling
+                and buffered-async layers: specs, static tables and
+                their per-round masks on torch tensors
 """
 from .channel import (WirelessConfig, Deployment, FadingProcess,
                       make_deployment)

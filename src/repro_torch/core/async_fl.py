@@ -1,22 +1,26 @@
-"""Buffered-asynchronous FL, host part (counterpart of
-``repro.core.async_fl``).
+"""Buffered-asynchronous FL (counterpart of ``repro.core.async_fl``).
 
 Under ``run.mode="async"`` device m delivers a round's update with
 static probability r_m (:func:`arrival_rates`), computed S rounds ago
 with S geometric(r_m) inside a K-round buffer, and weighted by
-``delta^S``. This module holds the pure-data spec and the float64 tables
-the design layer prices the stationary staleness with: rates, the
+``delta^S``. This module holds the pure-data spec, the float64 tables
+the design layer prices the stationary staleness with (rates, the
 staleness CDF and pmf, the delivery weights c_m and the expected
-staleness. Field order and defaults are the reference's, because they
-enter ``api.spec.spec_hash``. The round itself (``resolve``,
-``async_round``, ``stale_replace``) arrives with ROADMAP Queue 1 item 9;
-until then ``mode="async"`` raises in ``fl.engine.check_slice``.
+staleness), the resolved configuration the engine runs, and the round
+itself on torch tensors with trials leading: :func:`async_round` (the
+buffer shift, the delivery and staleness draws as exact comparisons of
+the f64-widened ARRIVAL uniforms against the tables, the gather and the
+``delta^S v N / sum(c v)`` scale) and :func:`stale_replace`, the one
+last-gradient path behind both "stale" policies. Field order and
+defaults are the reference's, because they enter ``api.spec.spec_hash``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
 
 MODES = ("sync", "async")
 ON_MISSING = ("zero", "stale")
@@ -113,3 +117,127 @@ def expected_staleness(spec: AsyncSpec, n_devices: int) -> np.ndarray:
     s = np.arange(int(spec.buffer_rounds), dtype=np.float64)
     mass = np.maximum(pmf.sum(axis=0), 1e-300)
     return np.sum(s[:, None] * pmf, axis=0) / mass
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedAsync:
+    """Validated async configuration (hashable: the tables are float64
+    tuples, compared by content)."""
+
+    buffer_rounds: int           # K — buffer depth / max staleness + 1
+    on_missing: str              # "zero" | "stale"
+    staleness_discount: float    # delta
+    weighting: str               # provenance: "uniform" | "designed"
+    rates: tuple                 # (N,) per-round completion probabilities
+    weights: tuple               # (N,) PS per-device weights v, sum == N
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.rates)
+
+    def rates_array(self) -> np.ndarray:
+        return np.asarray(self.rates, dtype=np.float64)
+
+    def weights_array(self) -> np.ndarray:
+        return np.asarray(self.weights, dtype=np.float64)
+
+    def cdf_array(self) -> np.ndarray:
+        """(K, N) staleness CDF thresholds (:func:`staleness_cdf`)."""
+        return staleness_cdf(self.rates_array(), self.buffer_rounds)
+
+    def discounts_array(self) -> np.ndarray:
+        """(K,) staleness discount table delta^s."""
+        return (float(self.staleness_discount)
+                ** np.arange(int(self.buffer_rounds), dtype=np.float64))
+
+    def delivery_weight_array(self) -> np.ndarray:
+        """(N,) c_m (:func:`delivery_weight`)."""
+        r = self.rates_array()
+        pmf = staleness_pmf(r, self.buffer_rounds)
+        return r * np.sum(self.discounts_array()[:, None] * pmf, axis=0)
+
+    def payload_scale_array(self) -> np.ndarray:
+        """(N,) per-device payload scale ``v_m * N / sum(c v)``, which
+        keeps the expected delivered mass at N."""
+        c = self.delivery_weight_array()
+        v = self.weights_array()
+        return v * (self.n_devices / float(np.sum(c * v)))
+
+
+def resolve(mode: str, spec: Optional[AsyncSpec], n_devices: int,
+            weights=None) -> Optional[ResolvedAsync]:
+    """Normalize the (mode, spec, weights) knobs: None under
+    ``mode="sync"``, else a validated :class:`ResolvedAsync`. Explicit
+    ``weights`` (the designed ones) override the weighting policy and
+    must lie on {sum v = N, v > 0}."""
+    if mode not in MODES:
+        raise ValueError(f"run mode must be one of {MODES}, got {mode!r}")
+    if mode == "sync":
+        if weights is not None:
+            raise ValueError(
+                "async_weights given but run mode is 'sync'; set "
+                "mode='async' to enable buffered-async aggregation")
+        return None
+    spec = spec if spec is not None else AsyncSpec()
+    n = int(n_devices)
+    if weights is not None:
+        v = np.asarray(weights, dtype=np.float64)
+        if v.shape != (n,):
+            raise ValueError(
+                f"async_weights must have shape ({n},), got {v.shape}")
+        if np.any(v <= 0.0) or not np.all(np.isfinite(v)):
+            raise ValueError("async_weights must be finite and > 0")
+        if abs(float(v.sum()) - n) > 1e-6 * n:
+            raise ValueError(
+                f"async_weights must sum to n_devices={n}, got sum "
+                f"{float(v.sum()):.9g}")
+    elif spec.weighting == "uniform":
+        v = np.ones(n)
+    else:   # "designed" without explicit weights
+        raise ValueError(
+            "async weighting='designed' needs explicit async_weights "
+            "(solve them with core.sca_jax.solve_async_batch, e.g. via "
+            "api.materialize.CellContext.async_weights)")
+    return ResolvedAsync(buffer_rounds=int(spec.buffer_rounds),
+                         on_missing=spec.on_missing,
+                         staleness_discount=float(spec.staleness_discount),
+                         weighting=spec.weighting,
+                         rates=tuple(arrival_rates(spec, n).tolist()),
+                         weights=tuple(v.tolist()))
+
+
+def async_round(g, buf, u, rates, cdf, discounts, pay_scale):
+    """One buffered-async delivery step on torch tensors.
+
+    ``g`` (..., N, d) the round's fresh gradients (already cast and
+    participation-scaled), ``buf`` (..., K, N, d) the buffer (slot s =
+    gradients computed s rounds ago, before this round's shift), ``u``
+    (..., 2, N) the round's ARRIVAL uniforms widened to f64, ``rates``
+    (N,), ``cdf`` (K, N), ``discounts`` (K,) and ``pay_scale`` (N,) the
+    resolved f64 tables on g's device; leading dimensions are trials.
+
+    Returns ``(payload, ok, buf_new)``: ``delta^S v N/sum(cv) g(w_{t-S})``
+    per device, the bool delivery mask (no completion, or S >= K), and
+    the shifted buffer. The staleness S is the count of CDF rows the
+    uniform reaches, so only exact comparisons touch the draws.
+    """
+    buf = torch.cat([g.unsqueeze(-3), buf[..., :-1, :, :]], dim=-3)
+    k = buf.shape[-3]
+    deliver = u[..., 0, :] < rates
+    crossed = (u[..., 1, :].unsqueeze(-2) >= cdf).sum(-2)   # (..., N)
+    ok = deliver & (crossed < k)
+    s = torch.clamp(crossed, max=k - 1)
+    index = s.unsqueeze(-2).unsqueeze(-1).expand(
+        s.shape[:-1] + (1,) + g.shape[-2:])
+    g_sel = torch.gather(buf, -3, index).squeeze(-3)
+    payload = g_sel * (discounts[s] * pay_scale).unsqueeze(-1)
+    return payload, ok, buf
+
+
+def stale_replace(g, ok, g_last):
+    """Missing payloads replay the last received ones; returns
+    ``(g_new, g_last_new)``, the carry being the payloads the PS
+    consumed. The one path behind ``fault.on_missing="stale"`` and the
+    async layer's ``on_missing="stale"``."""
+    g_new = torch.where(ok.unsqueeze(-1), g, g_last)
+    return g_new, g_new

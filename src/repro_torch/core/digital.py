@@ -19,8 +19,13 @@ from ..kernels import ops
 from .quantize import payload_bits
 
 
-def outage_mask(habs: torch.Tensor, thr):
-    """The threshold rule 1{ |h| >= thr }."""
+def outage_mask(habs: torch.Tensor, thr, deep_fade_thresh: float = 0.0):
+    """The one threshold rule 1{ |h| >= max(thr, deep_fade_thresh) }: the
+    digital in-allocation rule eq. (9) and the fault layer's deep fades.
+    ``thr`` and ``deep_fade_thresh`` are host values; with
+    ``deep_fade_thresh = 0`` the threshold is ``thr`` itself."""
+    if deep_fade_thresh != 0.0:
+        thr = np.maximum(thr, deep_fade_thresh)
     return habs >= torch.as_tensor(thr, dtype=habs.dtype, device=habs.device)
 
 

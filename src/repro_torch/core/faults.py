@@ -7,13 +7,13 @@ its payload erased (``erasure_prob``), hits a deep fade
 the round). ``on_missing`` says what the PS does with a missing payload:
 "reweight" (inverse propensity 1/q), "zero" or "stale".
 
-This module holds the pure-data spec and the static statistics the
-design layer reads: the survival probabilities q_m the "reweight" policy
-inverts, and the outage-adjusted channel energies the Sec.-IV solvers
-see. Its field order and defaults are the reference's, because they
-enter ``api.spec.spec_hash``. The per-round masks (``fault_masks``) and
-the engine's fault layer arrive with ROADMAP Queue 1 item 9; until then
-an enabled spec raises in ``fl.engine.check_slice``.
+This module holds the pure-data spec, the static statistics the design
+layer reads (the survival probabilities q_m the "reweight" policy
+inverts, the outage-adjusted channel energies the Sec.-IV solvers see)
+and the per-round masks the engine's fault layer applies
+(``fault_masks``, from one (3, N) block of the FAULT stream). The spec's
+field order and defaults are the reference's, because they enter
+``api.spec.spec_hash``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,10 @@ from typing import Optional
 
 import numpy as np
 
+import torch
+
 from .channel import participation_probability
+from .digital import outage_mask
 
 _POLICIES = ("reweight", "zero", "stale")
 
@@ -95,3 +98,23 @@ def effective_lambdas(lambdas: np.ndarray, fault: FaultSpec) -> np.ndarray:
     if fault.deadline_s is not None:
         q_u = q_u * (1.0 - fault.straggler_prob)
     return np.maximum(q_u * (lam + tf2) * np.exp(-tf2 / lam), 1e-12 * lam)
+
+
+def fault_masks(u: torch.Tensor, habs: torch.Tensor, fault: FaultSpec):
+    """Per-round delivery masks ``(ok, straggler)``, bool (..., N).
+
+    ``u`` (..., 3, N) holds the round's FAULT uniforms widened to f64
+    (rows: dropout, erasure, straggler), compared with the f64
+    probabilities as the reference compares them; ``habs`` (..., N) the
+    round's |h|, whose deep fades go through ``digital.outage_mask``.
+    Leading dimensions (trials) broadcast. A straggler misses the round
+    only under a deadline.
+    """
+    dropped = u[..., 0, :] < fault.dropout_prob
+    erased = u[..., 1, :] < fault.erasure_prob
+    straggler = u[..., 2, :] < fault.straggler_prob
+    faded = ~outage_mask(habs, 0.0, deep_fade_thresh=fault.deep_fade_thresh)
+    missed = dropped | erased | faded
+    if fault.deadline_s is not None:
+        missed = missed | straggler
+    return ~missed, straggler

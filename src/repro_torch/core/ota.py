@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .channel import participation_probability
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +202,12 @@ def bbfl_round(grads: torch.Tensor, habs: torch.Tensor, z01: torch.Tensor,
     ghat = ops.ota_combine_with_noise(acc, denom, float(np.sqrt(n0)) * z01,
                                       use_kernel=use_kernel)
     return ghat, chi
+
+
+def expected_participation(params: OTAParams,
+                           lambdas: np.ndarray) -> np.ndarray:
+    """E[chi^A_m] = exp(-tau_m^2/Lambda_m)."""
+    return participation_probability(params.thresholds(), lambdas)
 
 
 def uniform_gamma_min_variance(lambdas: np.ndarray, dim: int, e_s: float,

@@ -26,6 +26,11 @@ shift: CPU PyTorch has no uint32 add or shift. The same code runs on
 Python ints (keys, computed on the host) and on int64 tensors (counters,
 on the tensor's device).
 
+The engine layers' streams (fault, participation, async arrival) are
+counter-based like the dither: one small uniform block a round, tagged
+53, 59 and 61, which ``round_blocks`` makes for every round of a run in
+one pass.
+
 The PS AWGN, the fading and the selection draws of the digital baselines
 stay on NumPy's sequential generators (``trial_rng``, ``replay_rounds``,
 ``channel.sample_fading``), exactly as the reference's replay mode draws
@@ -40,6 +45,13 @@ import torch
 
 #: Stream tag folded into the dither key (the reference's DITHER_TAG).
 DITHER_TAG = 17
+
+#: The engine layers' streams (the reference's tags): dropout / erasure /
+#: straggler uniforms, (3, N) a round; client-sampling uniforms, (N,) a
+#: round; async delivery / staleness uniforms, (2, N) a round.
+FAULT_TAG = 53
+PARTICIPATE_TAG = 59
+ARRIVAL_TAG = 61
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -188,6 +200,74 @@ def dither_blocks(keys, t: int, n: int, d: int, *,
     k1 = torch.tensor([k[1] for k in folded], dtype=torch.int64,
                       device=device)[:, None]
     return _uniform_f32(k0, k1, n * d, device).reshape(len(folded), n, d)
+
+
+def fault_base_key(seed: int, trial: int) -> tuple[int, int]:
+    """Per-trial base key of the fault-injection stream."""
+    return stream_base_key(seed, trial, FAULT_TAG)
+
+
+def participate_base_key(seed: int, trial: int) -> tuple[int, int]:
+    """Per-trial base key of the client-participation stream."""
+    return stream_base_key(seed, trial, PARTICIPATE_TAG)
+
+
+def arrival_base_key(seed: int, trial: int) -> tuple[int, int]:
+    """Per-trial base key of the async-arrival stream."""
+    return stream_base_key(seed, trial, ARRIVAL_TAG)
+
+
+def fault_block(key, t: int, n: int, *, device="cpu") -> torch.Tensor:
+    """(3, n) f32 fault uniforms of round ``t``: rows drive dropouts,
+    erasures and stragglers (``core.faults.fault_masks``)."""
+    return uniform(fold_in(key, t), (3, n), device=device)
+
+
+def participation_block(key, t: int, n: int, *, device="cpu") -> torch.Tensor:
+    """(n,) f32 participation uniforms of round ``t``: device m is in the
+    round's cohort iff ``block[m] < pi_m``."""
+    return uniform(fold_in(key, t), (n,), device=device)
+
+
+def arrival_block(key, t: int, n: int, *, device="cpu") -> torch.Tensor:
+    """(2, n) f32 arrival uniforms of round ``t``: row 0 the delivery
+    event, row 1 the staleness draw (``core.async_fl.async_round``)."""
+    return uniform(fold_in(key, t), (2, n), device=device)
+
+
+def round_blocks(keys, rounds: int, shape, *, device="cpu") -> torch.Tensor:
+    """(K, rounds) + shape f32: the block ``uniform(fold_in(key, t),
+    shape)`` of every round t < ``rounds`` for K trial keys, in one pass
+    on ``device`` (the round keys are folded there too). The streams are
+    counter-based, so this is the per-round draw's bits; the engine makes
+    a layer's uniforms for a whole run with it."""
+    shape = tuple(int(s) for s in shape)
+    k0 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    k1 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    t = torch.arange(int(rounds), dtype=torch.int64, device=device)[None]
+    f0, f1 = threefry2x32(k0, k1, 0, t)                   # (K, rounds)
+    n = int(np.prod(shape))
+    return _uniform_f32(f0[..., None], f1[..., None], n, device).reshape(
+        (len(keys), int(rounds)) + shape)
+
+
+def fault_blocks(keys, rounds: int, n: int, *, device="cpu") -> torch.Tensor:
+    """(K, rounds, 3, n): :func:`fault_block` of every round."""
+    return round_blocks(keys, rounds, (3, n), device=device)
+
+
+def participation_blocks(keys, rounds: int, n: int, *,
+                         device="cpu") -> torch.Tensor:
+    """(K, rounds, n): :func:`participation_block` of every round."""
+    return round_blocks(keys, rounds, (n,), device=device)
+
+
+def arrival_blocks(keys, rounds: int, n: int, *,
+                   device="cpu") -> torch.Tensor:
+    """(K, rounds, 2, n): :func:`arrival_block` of every round."""
+    return round_blocks(keys, rounds, (2, n), device=device)
 
 
 def trial_rng(seed: int, trial: int) -> np.random.Generator:

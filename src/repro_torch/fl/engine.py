@@ -19,9 +19,24 @@ copied to the device once per run), and dither from the counter-based
 threefry stream ``rngstream.dither_blocks`` (one (trials, N, d) block per
 round, made on the device).
 
-This slice covers sync mode, replay, full batches and all 15 Sec. V
-schemes; the options it does not support raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+The reference's robustness layers transform each round's payloads
+upstream of every scheme's combiner, in its order (``repro/fl/engine.py:
+796-848``): the bf16 payload cast; partial participation (``chi = u <
+pi``, the included rows scaled by N/S); buffered async
+(``core.async_fl.async_round`` over a (trials, K, N, d) buffer, then a
+zero fill or ``stale_replace``); faults (``core.faults.fault_masks``,
+then ``reweight`` by ok/q, ``zero`` by ok or ``stale``). Their uniforms
+come from counter-based threefry streams (tags 53, 59, 61), made for the
+whole run in one pass on the device and widened to f64 exactly, so every
+mask is an exact comparison against float64 tables. A disabled
+``FaultSpec``, ``clients_per_round=None`` and ``mode="sync"`` each
+normalize to no layer, and the round runs the program without it. Under
+faults a round in which a delivering straggler takes part is stretched
+by ``straggler_mult`` and a deadline caps it, per trial on the device.
+
+The engine covers replay and full batches for all 15 Sec. V schemes;
+mini-batches and ``rng="fast"`` raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -31,12 +46,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import async_fl
 from ..core import baselines as B
+from ..core import participation as participation_lib
 from ..core import rngstream
 from ..core.channel import Deployment, sample_fading_batch
 from ..core.digital import (alloc_latency, capacity_rate, digital_round,
                             greedy_bit_alloc, outage_mask, sum_in_order,
                             topk_mask)
+from ..core.faults import fault_masks, survival_prob
 from ..core.ota import (bbfl_round, opc_ota_comp_eta, opc_ota_fl_round,
                         ota_round)
 from ..core.quantize import payload_bits
@@ -44,6 +62,12 @@ from ..device import resolve_device
 from ..kernels import ops
 
 _LATER = "ROADMAP Queue 1 item 9 (engine layers off the main path)"
+#: what each refused option waits for, in item 9's order
+_LATER_STEP = {
+    "batch_size": "the mini-batch streams (batch_indices / batch_block "
+                  "with JAX's permutation shuffle)",
+    "rng": "the fast streams (noise_block, sample_fading_jax, "
+           "sel_stream_jax)"}
 
 
 @dataclasses.dataclass
@@ -373,27 +397,110 @@ def scheme_port(agg, use_kernel: bool = True) -> SchemePort:
     return factory(agg, use_kernel)
 
 
+class _Layers:
+    """One run's robustness layers on the engine's device: their uniforms
+    for every round (one pass a layer, widened to f64), their f64 tables,
+    and the state they carry across rounds (the async buffer and the
+    "stale" payloads, zeros at the start)."""
+
+    def __init__(self, engine, seed: int, trials: int, T: int):
+        dev, f64 = engine.device, torch.float64
+        N, d = engine.dep.n_devices, engine.task.dim
+        self.bf16 = engine.payload_dtype == "bf16"
+
+        def uniforms(blocks, base_key):
+            keys = [base_key(seed, tr) for tr in range(trials)]
+            return blocks(keys, T, N, device=dev).to(f64)
+
+        def table(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+        self.part = part = engine.participation
+        if part is not None:
+            self.u_part = uniforms(rngstream.participation_blocks,
+                                   rngstream.participate_base_key)
+            self.part_probs = table(part.probs_array())
+        self.asy = asy = engine.async_
+        if asy is not None:
+            self.u_arrival = uniforms(rngstream.arrival_blocks,
+                                      rngstream.arrival_base_key)
+            self.async_tables = (table(asy.rates_array()),
+                                 table(asy.cdf_array()),
+                                 table(asy.discounts_array()),
+                                 table(asy.payload_scale_array()))
+            self.a_buf = torch.zeros(trials, asy.buffer_rounds, N, d,
+                                     dtype=f64, device=dev)
+            self.g_alast = (torch.zeros(trials, N, d, dtype=f64, device=dev)
+                            if asy.on_missing == "stale" else None)
+        self.fault = fault = engine.fault
+        if fault is not None:
+            self.u_fault = uniforms(rngstream.fault_blocks,
+                                    rngstream.fault_base_key)
+            self.q_surv = table(survival_prob(fault, engine.dep.lambdas))
+            self.g_stale = (torch.zeros(trials, N, d, dtype=f64, device=dev)
+                            if fault.on_missing == "stale" else None)
+        self.okb = self.straggler = None
+
+    def payloads(self, g: torch.Tensor, t: int,
+                 habs_t: torch.Tensor) -> torch.Tensor:
+        """Round ``t``'s (trials, N, d) f64 payloads through the layers,
+        in the reference's order."""
+        f64 = torch.float64
+        if self.bf16:
+            # the payload leaves the device truncated to bf16
+            g = g.to(torch.bfloat16).to(f64)
+        if self.part is not None:
+            chi = self.u_part[:, t] < self.part_probs
+            g = g * (chi.to(f64) * self.part.scale).unsqueeze(-1)
+        if self.asy is not None:
+            g, ok, self.a_buf = async_fl.async_round(
+                g, self.a_buf, self.u_arrival[:, t], *self.async_tables)
+            if self.g_alast is not None:
+                g, self.g_alast = async_fl.stale_replace(g, ok, self.g_alast)
+            else:
+                g = g * ok.to(f64).unsqueeze(-1)
+        if self.fault is not None:
+            okb, self.straggler = fault_masks(self.u_fault[:, t], habs_t,
+                                              self.fault)
+            self.okb = okb
+            if self.fault.on_missing == "zero":
+                g = g * okb.to(f64).unsqueeze(-1)
+            elif self.fault.on_missing == "reweight":
+                g = g * (okb.to(f64) / self.q_surv).unsqueeze(-1)
+            else:
+                g, self.g_stale = async_fl.stale_replace(g, okb,
+                                                         self.g_stale)
+        return g
+
+    def fault_latency(self, lat_s) -> torch.Tensor:
+        """The round's (trials,) seconds under faults: stretched by
+        ``straggler_mult`` where a delivering straggler takes part, then
+        capped at the deadline (no host sync)."""
+        if not torch.is_tensor(lat_s):
+            lat_s = torch.full(self.okb.shape[:-1], lat_s,
+                               dtype=torch.float64, device=self.okb.device)
+        slow = (self.straggler & self.okb).any(-1)
+        lat_s = torch.where(slow, lat_s * self.fault.straggler_mult, lat_s)
+        if self.fault.deadline_s is not None:
+            lat_s = torch.clamp(lat_s, max=float(self.fault.deadline_s))
+        return lat_s
+
+
 def _project(w: torch.Tensor, radius: float) -> torch.Tensor:
     nrm = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
     return w * torch.clamp(radius / torch.clamp(nrm, min=1e-300), max=1.0)
 
 
-def check_slice(*, batch_size=None, payload_dtype="f32", fault=None,
-                clients_per_round=None, mode="sync", rng="replay") -> None:
-    """Raise ``NotImplementedError`` for options outside this slice."""
-    if fault is not None and not getattr(fault, "enabled", True):
-        fault = None              # a disabled fault spec is no fault layer
+def check_slice(*, batch_size=None, rng="replay") -> None:
+    """Raise ``NotImplementedError`` for the options the port's engine
+    does not run yet: mini-batches and ``rng="fast"``."""
     for opt, value, base in (("batch_size", batch_size, None),
-                             ("payload_dtype", payload_dtype, "f32"),
-                             ("fault", fault, None),
-                             ("clients_per_round", clients_per_round, None),
-                             ("mode", mode, "sync"),
                              ("rng", rng, "replay")):
         if value != base:
             raise NotImplementedError(
-                f"{opt}={value!r} is not in the port's first slice (sync, "
-                f"replay, full batch, f32 payloads); it arrives with "
-                f"{_LATER}")
+                f"{opt}={value!r} is not in the port yet (full batches, "
+                f"rng='replay'); it arrives with {_LATER}: "
+                f"{_LATER_STEP[opt]}")
 
 
 class FLEngine:
@@ -408,15 +515,33 @@ class FLEngine:
                  batch_size: Optional[int] = None,
                  use_kernel: bool = True, payload_dtype: str = "f32",
                  fault=None, clients_per_round: Optional[int] = None,
-                 mode: str = "sync", device=None):
-        check_slice(batch_size=batch_size, payload_dtype=payload_dtype,
-                    fault=fault, clients_per_round=clients_per_round,
-                    mode=mode)
+                 participation: str = "uniform", participation_probs=None,
+                 mode: str = "sync", async_spec=None, async_weights=None,
+                 device=None):
+        check_slice(batch_size=batch_size)
+        if payload_dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f"payload_dtype must be 'f32' or 'bf16', got {payload_dtype!r}")
+        self.payload_dtype = payload_dtype
+        # each layer off normalizes to None: the round runs without it
+        self.fault = fault if fault is not None and fault.enabled else None
+        self.async_ = async_fl.resolve(mode, async_spec,
+                                       deployment.n_devices, async_weights)
         sizes = {len(d) for d in dataset.devices}
         if len(sizes) != 1:
             raise ValueError("full-batch training needs equal-sized device "
                              f"datasets (got sizes {sorted(sizes)})")
         self.device = resolve_device(device)
+        # the loss / datasize policies weigh devices by (task, dataset)
+        part_weights = None
+        if (clients_per_round is not None and participation_probs is None
+                and participation in participation_lib.WEIGHTED_POLICIES):
+            part_weights = participation_lib.policy_weights(
+                participation, task, dataset, device=self.device)
+        self.participation = participation_lib.resolve(
+            clients_per_round, participation, participation_probs,
+            n_devices=deployment.n_devices, lambdas=deployment.lambdas,
+            weights=part_weights)
         self.task = task
         self.dep = deployment
         self.eta = eta
@@ -470,6 +595,11 @@ class FLEngine:
         budget = np.inf if time_budget_s is None else float(time_budget_s)
         lat_div = self.dep.cfg.bandwidth_hz if port.is_ota else 1.0
 
+        layers = None
+        if (self.payload_dtype != "f32" or self.fault is not None
+                or self.participation is not None or self.async_ is not None):
+            layers = _Layers(self, seed, trials, T)
+
         w = self.task.init_params(device=dev).expand(trials, d).clone()
         t_wall = torch.zeros(trials, dtype=torch.float64, device=dev)
         live = torch.ones(trials, dtype=torch.bool, device=dev)
@@ -481,6 +611,8 @@ class FLEngine:
             active = t_wall < budget
             g = self.task.device_grads(w.to(torch.float32), self.xs,
                                        self.ys).to(torch.float64)
+            if layers is not None:
+                g = layers.payloads(g, t, habs[:, t])
             u = (rngstream.dither_blocks(dkeys, t, N, d, device=dev)
                  if port.needs_dither else None)
             ghat, lat = port.round_fn(g, habs[:, t],
@@ -489,7 +621,12 @@ class FLEngine:
             w = torch.where(active[:, None], _project(w - self.eta * ghat,
                                                       radius), w)
             # division (not a reciprocal multiply), as the reference
-            t_wall = torch.where(active, t_wall + lat / lat_div, t_wall)
+            if layers is not None and layers.fault is not None:
+                t_wall = torch.where(
+                    active, t_wall + layers.fault_latency(lat / lat_div),
+                    t_wall)
+            else:
+                t_wall = torch.where(active, t_wall + lat / lat_div, t_wall)
             live = active
             if (t + 1) % eval_every == 0:
                 # the eval at a segment's end is written iff its last round

@@ -7,10 +7,12 @@ and per-round latency accounting (OTA: d/B; digital: realized TDMA time),
 with an optional wall-clock budget. Runs on the trials-batched engine
 (``fl.engine.FLEngine``) on ``device`` (default: the card).
 
-``FLTrainer`` takes the reference's arguments. The partial-participation
-and buffered-async knobs are no-ops at their defaults, as there;
-anything that would turn a layer on raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 9 (``fl.engine.check_slice``).
+``FLTrainer`` takes the reference's arguments and hands the fault,
+partial-participation, buffered-async and bf16-payload options to the
+engine, which validates them with the reference's messages; each is a
+strict no-op at its default. Mini-batches and ``rng="fast"`` raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 9
+(``fl.engine.check_slice``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.async_fl import MODES
 from ..core.channel import Deployment
 from ..device import resolve_device
 from .engine import FLEngine, TrainLog
@@ -34,27 +35,15 @@ class FLTrainer:
                  participation: str = "uniform",
                  participation_probs=None, mode: str = "sync",
                  async_spec=None, async_weights=None, device=None):
-        if payload_dtype not in ("f32", "bf16"):
-            raise ValueError(
-                f"payload_dtype must be 'f32' or 'bf16', got {payload_dtype!r}")
-        if mode not in MODES:
-            raise ValueError(f"run mode must be one of {MODES}, got {mode!r}")
-        # the reference's strict no-ops: without clients_per_round the
-        # sampling policy is inert, under mode="sync" the async spec is
-        if clients_per_round is None and participation_probs is not None:
-            raise ValueError(
-                "participation_probs given but clients_per_round is None; "
-                "set clients_per_round to enable partial participation")
-        if mode == "sync" and async_weights is not None:
-            raise ValueError(
-                "async_weights given but run mode is 'sync'; set "
-                "mode='async' to enable buffered-async aggregation")
         self.eta = eta
         self.project_radius = project_radius
         self._engine = FLEngine(
             task, dataset, deployment, eta, project_radius=project_radius,
             batch_size=batch_size, payload_dtype=payload_dtype, fault=fault,
-            clients_per_round=clients_per_round, mode=mode, device=device)
+            clients_per_round=clients_per_round, participation=participation,
+            participation_probs=participation_probs, mode=mode,
+            async_spec=async_spec, async_weights=async_weights,
+            device=device)
 
     def run(self, aggregator, *, rounds: int, trials: int = 3,
             eval_every: int = 10, seed: int = 0,

@@ -14,12 +14,15 @@ import numpy as np
 import torch
 
 from .core import baselines as B
+from .core.async_fl import AsyncSpec
 from .core.bounds import ObjectiveWeights
 from .core.channel import Deployment, WirelessConfig
 from .core.digital import DigitalParams
 from .core.digital_design import DigitalDesignSpec
+from .core.faults import FaultSpec
 from .core.ota import OTAParams
 from .core.ota_design import OTADesignSpec
+from .core.participation import ResolvedParticipation
 from .data.loader import FLDataset
 from .kernels.ops import PackedGrads
 from .kernels.ref import LANES, payload_word_rows
@@ -77,6 +80,24 @@ def dataset(ref) -> FLDataset:
     return FLDataset.from_shards(
         [(np.asarray(d.x), np.asarray(d.y)) for d in ref.devices],
         np.asarray(ref.x_test), np.asarray(ref.y_test))
+
+
+def fault_spec(ref) -> FaultSpec:
+    """``repro.core.faults.FaultSpec`` -> port ``FaultSpec``."""
+    return FaultSpec(**_fields(ref, FaultSpec))
+
+
+def async_spec(ref) -> AsyncSpec:
+    """``repro.core.async_fl.AsyncSpec`` -> port ``AsyncSpec``."""
+    return AsyncSpec(**_fields(ref, AsyncSpec))
+
+
+def resolved_participation(ref) -> ResolvedParticipation:
+    """``repro.core.participation.ResolvedParticipation`` -> the port's
+    (its float64 probabilities as they are)."""
+    return ResolvedParticipation(clients=int(ref.clients),
+                                 policy=ref.policy,
+                                 probs=tuple(float(p) for p in ref.probs))
 
 
 def _restore(cls, **attrs):

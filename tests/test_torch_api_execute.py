@@ -8,8 +8,10 @@ on the CPU, through the ``ref`` fixture:
   * kappa_nc at Fig. 3's quick sizes within 1e-6 relative;
   * a second ``execute`` touches neither solver nor trainer, and a
     corrupt cell is quarantined and recomputed;
-  * the four scenarios that need ROADMAP Queue 1 item 9 raise before any
-    design solve or file write, as does another backend;
+  * what still needs ROADMAP Queue 1 item 9 (``fig2_batch``'s
+    mini-batches, ``rng="fast"``) raises before any design solve or file
+    write, as does another backend (the fault, participation and async
+    sweeps run: ``test_torch_api_sweeps.py``);
   * the port's results root is its own: a reference cell under the
     reference's root is never read back as the port's;
   * without a card the default device raises.
@@ -186,8 +188,12 @@ def test_corrupt_cell_is_quarantined_and_recomputed(tmp_path):
 
 # ------------------------------------------------ the item-9 scenarios
 
-@pytest.mark.parametrize("name", ["sweep_fault", "sweep_participation",
-                                  "sweep_async", "fig2_batch"])
+LATER = {"fig2_batch": lambda: scenarios.get("fig2_batch"),
+         "rng_fast": lambda: scenarios.sweep_smoke().base.override(
+             "run.rng", "fast")}
+
+
+@pytest.mark.parametrize("name", list(LATER))
 def test_later_scenarios_raise_before_any_solve_or_write(name, tmp_path,
                                                          monkeypatch):
     def boom(*a, **k):
@@ -198,7 +204,7 @@ def test_later_scenarios_raise_before_any_solve_or_write(name, tmp_path,
     monkeypatch.setattr(mat, "materialize", boom)
     out = tmp_path / name
     with pytest.raises(NotImplementedError, match="item 9"):
-        execute(scenarios.get(name), out_dir=out, device="cpu")
+        execute(LATER[name](), out_dir=out, device="cpu")
     assert not out.exists()
 
 
@@ -259,8 +265,9 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
 
 def test_trainer_takes_the_reference_signature(ref):
     """The reference's ``FLTrainer`` arguments: inert at their defaults
-    (and where the reference leaves them inert), refused with ROADMAP
-    Queue 1 item 9 where they would turn a layer on; one engine."""
+    (and where the reference leaves them inert), validated with the
+    reference's errors, the layers run; mini-batches and ``rng="fast"``
+    refused with ROADMAP Queue 1 item 9; one engine."""
     from repro_torch.core.async_fl import AsyncSpec
     spec = scenarios.sweep_smoke().base
     ctx = mat.materialize(spec, device="cpu")
@@ -284,9 +291,13 @@ def test_trainer_takes_the_reference_signature(ref):
     for kw in (dict(clients_per_round=3), dict(mode="async"),
                dict(clients_per_round=3, participation="designed",
                     participation_probs=[0.5] * 6)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            FLTrainer(*args, device="cpu", **kw)
+        log = FLTrainer(*args, device="cpu", **kw).run(agg, **run)
+        assert np.all(np.isfinite(log.global_loss))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        FLTrainer(*args, device="cpu", batch_size=16)
     trainer = FLTrainer(*args, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        trainer.run(agg, rng="fast", **run)
     for backend in ("numpy", "jax", "torch"):
         with pytest.raises(ValueError, match="one engine"):
             trainer.run(agg, backend=backend, **run)
@@ -313,8 +324,7 @@ def test_codesign_weights_match_reference(ref, name):
     co-design solvers, ``core.sca_torch``) against the reference's, on
     the last cell of each quick sweep (designed sampling; designed async
     weights), for a designed scheme and for one without a wireless design
-    (uniform levels). The engine refuses to run these layers until
-    ROADMAP Queue 1 item 9; the weights do not wait."""
+    (uniform levels)."""
     cell_p = ex.make_plan(scenarios.get(name)).cells[-1].scenario
     cell_r = ref.plan.plan(ref.scenarios.get(name)).cells[-1].scenario
     ctx_p = mat.materialize(cell_p, device="cpu")

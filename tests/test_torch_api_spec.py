@@ -139,8 +139,10 @@ def test_describe_and_schedule_match_reference(ref, name, quick):
 
 
 def test_the_four_later_scenarios_still_plan():
-    """The four scenarios that need ROADMAP Queue 1 item 9 plan and hash
-    here (execute refuses them, tests/test_torch_api_execute.py)."""
+    """The four scenarios that came after the first sweeps plan and hash
+    here (execute runs the fault, participation and async sweeps,
+    tests/test_torch_api_sweeps.py, and refuses fig2_batch's mini-batches,
+    tests/test_torch_api_execute.py)."""
     for name in ("sweep_fault", "sweep_participation", "sweep_async",
                  "fig2_batch"):
         assert plan(scenarios.get(name)).cells

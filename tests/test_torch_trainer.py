@@ -23,6 +23,7 @@ import torch
 from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
 import repro_torch
 from repro_torch import interop
+from repro_torch.core.async_fl import AsyncSpec
 from repro_torch.fl import FLTrainer, SoftmaxRegressionTask
 
 N = 6
@@ -140,11 +141,17 @@ def test_default_device_is_the_card(setup):
                   interop.deployment(setup["dep"]), setup["eta"])
 
 
-@pytest.mark.parametrize("option", [
-    dict(batch_size=32), dict(payload_dtype="bf16"),
-    dict(clients_per_round=3), dict(mode="async")])
-def test_options_outside_the_slice_raise(setup, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("option,error,match", [
+    (dict(batch_size=32), NotImplementedError, "ROADMAP Queue 1 item 9"),
+    (dict(payload_dtype="f16"), ValueError, "'f32' or 'bf16'"),
+    (dict(clients_per_round=7), ValueError, "n_devices=6"),
+    (dict(mode="async", async_spec=AsyncSpec(weighting="designed")),
+     ValueError, "explicit async_weights")])
+def test_options_outside_the_slice_raise(setup, option, error, match):
+    """Mini-batches wait for ROADMAP Queue 1 item 9; the bf16, sampling
+    and async layers run (``tests/test_torch_faults.py`` and its
+    siblings) and refuse what the reference refuses."""
+    with pytest.raises(error, match=match):
         FLTrainer(setup["port_task"], interop.dataset(setup["ds"]),
                   interop.deployment(setup["dep"]), setup["eta"],
                   device="cpu", **option)
