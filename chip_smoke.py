@@ -132,7 +132,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
      re-run all cached, with no launch and the same manifest but for
      timings; then ``python -m repro_torch.api.cli run sweep_async --jobs
      4`` (the quick spec) once;
-8. serve (``repro_torch.launch.serve.serve``), random weights from a
+8. mini-batches and ``rng="fast"`` (``fl.engine``, plain torch streams
+   on the card; no kernel of their own):
+     (c) ``rng="fast"`` through ``FLTrainer``, Fig. 2 ProposedOTA (N =
+     50, 30 rounds) and ProposedDigital, UQOS, QML and FedTOE (N = 10, 40
+     rounds, the 150 s budget), each checked as a phase 7 run (launches
+     exactly its route's, plain bit-equal, the CPU within 1e-5 or 1e-3
+     and the 4-sigma gate), its host ms, launches and device idle a
+     round beside the same run in replay mode;
+     (a) the streams made on the card against the CPU's: Fig. 2's (4
+     trials, 10 rounds, 50 devices, B) batch blocks for B = 16, 64, 256,
+     an n = 1626 block (two sorts), ragged and mixed rows and the fast
+     selection rows of UQOS, QML and FedTOE bit for bit; the fast PS
+     AWGN, f64 normals and fast |h| within the tests' 3 and 8 ulps;
+     (b) ``fig2_batch(quick=False)`` (N = 50, 1000 samples a device, B
+     = 16, 64, 256 and full, 9 schemes) through ``execute`` cut to 30
+     rounds, as a phase 7 sweep (seconds of kappa, design and schemes,
+     one ``ota_combine`` a round per OTA scheme and nothing else, the
+     cached re-run), then the same sweep cut to Proposed OTA at kappa 3
+     on the card against the CPU within 1e-5;
+9. serve (``repro_torch.launch.serve.serve``), random weights from a
    seed, for falcon-mamba-7b (the selective scan on its CUDA kernel) and
    recurrentgemma-2b (the RG-LRU recurrence on the linear-scan kernel,
    local attention over the KV ring buffer):
@@ -151,7 +170,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly one scan launch a recurrent
      layer in the prefill (64, 18) and none in decode, finite logits;
      prefill and decode tokens/s and the peak memory;
-9. FL-LM training (``repro_torch.launch.train``, the wireless collective
+10. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
      against its plain route on the same per-client gradients, bit-equal
@@ -166,7 +185,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
      every launch on the card and the device time a step;
-10. the kernel table, nvidia-smi's line, and the result line.
+11. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
 import gc
@@ -1626,7 +1645,7 @@ def describe_layers(kw) -> dict:
 
 
 def layers_run(name, setup, agg, layer_kw, expect, run, rtol, gate,
-               cpu_run=None):
+               cpu_run=None, phase="layers"):
     """One scheme under layer options ``layer_kw`` through ``FLTrainer``
     on the card: the launch counts at 0 before the run and exactly
     ``expect`` (every kernel) after it, finite losses, the same run on
@@ -1694,7 +1713,7 @@ def layers_run(name, setup, agg, layer_kw, expect, run, rtol, gate,
               f"layers {name}: outside the 4-sigma gate: {gap.tolist()} vs "
               f"{stderr.tolist()} + {floor.tolist()}")
     T = (run["rounds"] // run["eval_every"]) * run["eval_every"]
-    emit(phase="layers", run=name, scheme=log.scheme,
+    emit(phase=phase, run=name, scheme=log.scheme,
          layers=describe_layers(layer_kw), rounds=run["rounds"],
          trials=run["trials"], launches={k: v for k, v in counts.items() if v},
          launches_per_round={k: v / T for k, v in counts.items() if v},
@@ -1708,7 +1727,9 @@ def layers_run(name, setup, agg, layer_kw, expect, run, rtol, gate,
          max_rel_loss_diff_vs_cpu=rel, limit=rtol,
          wall_time_max_ulps_vs_cpu=ulps, four_sigma_gate=gate,
          vs_cpu_rounds=cmp_run["rounds"], vs_cpu_trials=cmp_run["trials"])
-    return counts, log
+    return counts, log, dict(host_ms_per_round=1e3 * seconds / T,
+                             launches_per_round=all_launches / T,
+                             device_idle=1.0 - device_ms / (1e3 * seconds))
 
 
 def layers_engine_runs(ota_p, dig_p, phase5_log):
@@ -1780,9 +1801,9 @@ def layers_engine_runs(ota_p, dig_p, phase5_log):
         ("defaults", dict(fault=FaultSpec(), clients_per_round=None,
                           mode="sync"))]
     for name, kw in ota_runs:
-        counts, log = layers_run(f"Fig. 2 ProposedOTA, {name}", setup, ota,
-                                 kw, {"ota_combine": 30}, run,
-                                 LAYER_OTA_RTOL, False)
+        counts, log, _ = layers_run(f"Fig. 2 ProposedOTA, {name}", setup,
+                                    ota, kw, {"ota_combine": 30}, run,
+                                    LAYER_OTA_RTOL, False)
         add(counts)
     check(np.array_equal(log.global_loss, phase5_log.global_loss)
           and np.array_equal(log.accuracy, phase5_log.accuracy)
@@ -1795,7 +1816,7 @@ def layers_engine_runs(ota_p, dig_p, phase5_log):
     setup = fig2_setup(10, 1200)
     dig = B.ProposedDigital(dig_p, label="Proposed Digital FL (designed on "
                                          "the card)")
-    counts, _ = layers_run(
+    counts, _, _ = layers_run(
         "Fig. 2 ProposedDigital, fault zero + participation", setup, dig,
         dict(fault=FaultSpec(on_missing="zero", **LAYER_FAULT),
              clients_per_round=6),
@@ -1807,7 +1828,7 @@ def layers_engine_runs(ota_p, dig_p, phase5_log):
     free_card()
 
     task, ds, dep, eta, _, dig3 = fig3_setup()
-    counts, _ = layers_run(
+    counts, _, _ = layers_run(
         "Fig. 3 ProposedDigital, fault zero", (task, ds, dep, eta),
         B.ProposedDigital(dig3, label="Proposed Digital FL (uniform "
                                       "anchor)"),
@@ -1977,6 +1998,189 @@ def layers_phase(ota_p, dig_p, phase5_log):
             launches[k] = launches.get(k, 0) + v
         free_card()
     sweep_cli()
+    return launches
+
+
+# ------------------------------------------ mini-batches and fast streams
+
+STREAM_SIZES = (1000, 800, 1626, 300, 1000, 150)   # ragged / mixed rows
+FAST_NORMAL_ULPS = 3       # f32 and f64 normals, the tests' bound
+FAST_FADING_ULPS = 8       # |h|, the tests' bound
+
+
+def max_ulps(a, b) -> float:
+    """The largest gap of two float tensors in ulps of b."""
+    import numpy as np
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.max(np.abs(a - b)
+                        / np.spacing(np.maximum(np.abs(b), 1e-300))))
+
+
+def streams_vs_cpu(dig_ports):
+    """Part (a): the batch and fast streams made on the card against the
+    CPU's: Fig. 2's (4, 10, 50, B) batch blocks for B = 16, 64, 256, an
+    n = 1626 block (two sorts), ragged and mixed rows, the fast selection
+    rows of ``dig_ports`` (40 rounds), bit for bit; the fast PS AWGN, the
+    f64 normals and the fast |h| within the tests' ulps."""
+    import torch
+    from repro_torch.core import channel, rngstream
+    from repro_torch.core.channel import WirelessConfig, make_deployment
+    t0 = time.perf_counter()
+    keys = [rngstream.batch_base_key(0, tr) for tr in range(4)]
+    rows = []
+    for name, sizes, B, mixed in (
+            *[(f"Fig. 2 B = {b}", (1000,) * 50, b, False)
+              for b in (16, 64, 256)],
+            ("n = 1626", (1626,) * 10, 64, False),
+            ("ragged", STREAM_SIZES, 150, False),
+            ("mixed", STREAM_SIZES, 800, True)):
+        args = (keys, 0, 10, sizes, B)
+        card = rngstream.batch_blocks(*args, mixed=mixed, device="cuda")
+        cpu = rngstream.batch_blocks(*args, mixed=mixed, device="cpu")
+        check(torch.equal(card.cpu(), cpu),
+              f"batch block {name} on the card != CPU")
+        rows.append(dict(block=name, shape=list(card.shape),
+                         sorts=rngstream.shuffle_rounds(max(sizes)),
+                         bit_equal=True))
+    for port in dig_ports:
+        sk = [rngstream.stream_base_key(0, tr, rngstream.SELECT_TAG)
+              for tr in range(4)]
+        card = port.sel_stream_fast(rngstream.round_keys(sk, 40,
+                                                         device="cuda"))
+        cpu = port.sel_stream_fast(rngstream.round_keys(sk, 40))
+        check(torch.equal(card.cpu(), cpu),
+              f"fast selection rows of {port.name} on the card != CPU")
+        rows.append(dict(block=f"selection {port.name}",
+                         shape=list(card.shape), bit_equal=True))
+    zk = [rngstream.stream_base_key(0, tr, rngstream.NOISE_TAG)
+          for tr in range(4)]
+    noise = [rngstream.noise_blocks(zk, 0, 10, 7850, device=dev)
+             .to(torch.float32) for dev in ("cuda", "cpu")]
+    z64 = [rngstream.normal_f64(rngstream.prng_key(7), (1 << 20,),
+                                device=dev) for dev in ("cuda", "cpu")]
+    lam = make_deployment(WirelessConfig(n_devices=50, seed=1)).lambdas
+    fk = [rngstream.stream_base_key(0, tr, rngstream.FADING_TAG)
+          for tr in range(4)]
+    habs = [channel.fading_abs_fast(fk, 300, lam, device=dev)
+            for dev in ("cuda", "cpu")]
+    gaps = dict(noise_f32=max_ulps(*noise), normal_f64=max_ulps(*z64),
+                fading_abs=max_ulps(*habs))
+    check(gaps["noise_f32"] <= FAST_NORMAL_ULPS
+          and gaps["normal_f64"] <= FAST_NORMAL_ULPS
+          and gaps["fading_abs"] <= FAST_FADING_ULPS,
+          f"fast normals on the card against the CPU: {gaps} ulps")
+    emit(phase="streams_vs_cpu", blocks=rows, ulps=gaps,
+         limits=dict(normals=FAST_NORMAL_ULPS, fading=FAST_FADING_ULPS),
+         noise_f32_equal_share=float(
+             (noise[0].cpu() == noise[1]).double().mean()),
+         seconds=time.perf_counter() - t0)
+
+
+def batch_sweep_vs_cpu():
+    """Part (b), the card against the CPU: ``fig2_batch(quick=False)``
+    cut to 30 rounds, Proposed OTA at one step size and kappa fixed at 3
+    (the CPU's kappa estimate over 50,000 samples would take minutes),
+    each cell within 1e-5."""
+    from repro_torch.api import execute, scenarios
+    from repro_torch.api.spec import SweepSpec
+    sweep = scenarios.fig2_batch(quick=False)
+    base = sweep.base
+    for path, value in (("run.rounds", 30), ("run.etas", (0.25,)),
+                        ("design.kappa", 3.0),
+                        ("schemes", ("proposed_ota",))):
+        base = base.override(path, value)
+    spec = SweepSpec(name="fig2_batch", base=base, axes=dict(sweep.axes))
+    t0 = time.perf_counter()
+    card = execute(spec, save=False, force=True)
+    card_s = time.perf_counter() - t0
+    cpu = execute(spec, save=False, force=True, device="cpu")
+    worst = logs_agree("fig2_batch", card, cpu, SCENARIO_OTA_RTOL, False)
+    emit(phase="scenario_vs_cpu", run="fig2_batch, proposed_ota, kappa 3",
+         cells=len(card), card_s=card_s, max_rel_loss_diff=worst["loss"],
+         max_rel_objective_diff=worst["objective"],
+         limit=SCENARIO_OTA_RTOL, objective_limit=SCENARIO_OBJ_RTOL)
+
+
+def replay_beside(setup, agg, run):
+    """The same run in replay mode, for its host ms, launches and device
+    idle beside the fast run's (its trajectory is phase 5's)."""
+    import torch
+    from repro_torch.fl import FLTrainer
+    trainer = FLTrainer(*setup)
+    trainer.run(agg, **{**run, "rounds": 2, "eval_every": 1})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(agg, **run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, _, device_ms = launches_of(lambda: trainer.run(agg, **run))
+    T = (run["rounds"] // run["eval_every"]) * run["eval_every"]
+    return dict(host_ms_per_round=1e3 * seconds / T,
+                launches_per_round=launches / T,
+                device_idle=1.0 - device_ms / (1e3 * seconds))
+
+
+def fast_run(name, setup, agg, expect, run, rtol, gate, launches):
+    """One ``rng="fast"`` run as a "layers" run (launches exactly
+    ``expect``, plain bit-equal, the CPU within ``rtol``, with ``gate``
+    the 4-sigma gate), then the same run in replay mode beside it."""
+    counts, _, fast = layers_run(f"{name}, fast", setup, agg, {}, expect,
+                                 dict(run, rng="fast"), rtol, gate,
+                                 phase="fast")
+    emit(phase="fast_vs_replay", run=name, fast=fast,
+         replay=replay_beside(setup, agg, run))
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def fast_runs(ota_p, dig_p):
+    """Part (c): ``rng="fast"`` through ``FLTrainer`` on the card, Fig. 2
+    ProposedOTA (N = 50, 30 rounds) and ProposedDigital, UQOS, QML and
+    FedTOE (N = 10, 40 rounds, the 150 s budget). Returns the launches
+    and the three selection schemes."""
+    from repro_torch.core import baselines as B
+    launches = {}
+    fast_run("Fig. 2 ProposedOTA", fig2_setup(50, 6000),
+             B.ProposedOTA(ota_p, label="Proposed OTA-FL (designed on the "
+                                        "card)"),
+             {"ota_combine": 30},
+             dict(rounds=30, trials=4, eval_every=10, seed=0),
+             LAYER_OTA_RTOL, False, launches)
+    free_card()
+    setup = fig2_setup(10, 1200)
+    task, _, dep, _ = setup
+    cfg = dep.cfg
+    dconsts = (task.dim, task.g_max, cfg.energy_per_symbol, cfg.noise_power,
+               cfg.bandwidth_hz)
+    selection = [a for a in digital_suite(dep, dconsts)
+                 if isinstance(a, (B.UQOS, B.QML, B.FedTOE))]
+    for agg in [B.ProposedDigital(dig_p, label="Proposed Digital FL "
+                                               "(designed on the card)"),
+                *selection]:
+        fast_run(f"Fig. 2 {agg.name}", setup, agg,
+                 {"dithered_quantize_rows": 40},
+                 dict(rounds=40, trials=4, eval_every=20, seed=0,
+                      time_budget_s=150.0), LAYER_DIG_RTOL, True, launches)
+    return launches, selection
+
+
+def streams_phase(ota_p, dig_p):
+    """Phase 8: mini-batches and ``rng="fast"`` on the card: (c) the fast
+    runs, (a) the streams against the CPU (the selection rows of (c)'s
+    schemes), (b) ``fig2_batch(quick=False)`` cut to 30 rounds through
+    ``execute`` with its cached re-run, then a cut of it against the CPU.
+    Returns the launches."""
+    from repro_torch.fl.engine import scheme_port
+    t0 = time.perf_counter()
+    launches, selection = fast_runs(ota_p, dig_p)
+    free_card()
+    streams_vs_cpu([scheme_port(a) for a in selection])
+    for k, v in sweep_run("fig2_batch", sweep_cut("fig2_batch",
+                                                  rounds=30)).items():
+        launches[k] = launches.get(k, 0) + v
+    free_card()
+    batch_sweep_vs_cpu()
+    emit(phase="streams_done", seconds=time.perf_counter() - t0)
     return launches
 
 
@@ -2883,7 +3087,13 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     free_card()
 
-    # 8. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
+    # 8. mini-batches and rng="fast": the fast runs beside replay, the
+    # streams on the card against the CPU, fig2_batch through execute
+    for k, v in streams_phase(*designed).items():
+        launches[k] = launches.get(k, 0) + v
+    free_card()
+
+    # 9. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
     # its plain version at full width cut to one pattern, the card against
     # the CPU at the reduced sizes, then the main path at full width and
     # depth
@@ -2893,7 +3103,7 @@ def main() -> int:
         for k, v in serve_full(arch).items():
             launches[k] = launches.get(k, 0) + v
 
-    # 9. FL-LM training: the collective's kernel route against its plain
+    # 10. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
     # on the card against the CPU, then the main path at full width and
     # depth
@@ -2902,7 +3112,7 @@ def main() -> int:
     for k, v in train_full().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 10. the kernel table at the main path's shapes and types (launches:
+    # 11. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.api.cli describe fig2_ota_sc
     PYTHONPATH=src python -m repro_torch.api.cli run sweep_smoke [--out DIR]
     PYTHONPATH=src python -m repro_torch.api.cli run sweep_smoke --jobs 2
+    PYTHONPATH=src python -m repro_torch.api.cli run fig2_batch
     PYTHONPATH=src python -m repro_torch.api.cli run my_sweep.json --full
     PYTHONPATH=src python -m repro_torch.api.cli run sweep_smoke --device cpu
 

@@ -4,12 +4,11 @@
 ``execute()`` turns a plan into a versioned ``ResultSet`` on one device
 (default: the card; ``device="cpu"`` runs the plain PyTorch path):
 
-0. **Slice check** — every cell's run options go through the engine's
-   ``check_slice`` before anything is solved or written: a scenario that
-   needs what the port's engine does not run yet (mini-batches, as
-   ``fig2_batch`` does, or ``rng="fast"``) raises
-   ``NotImplementedError`` naming ROADMAP Queue 1 item 9. The fault,
-   participation, async and bf16-payload layers run.
+0. **Backend check** — a cell asking for another backend than the
+   port's one engine is refused before anything is solved or written.
+   Every run option of the reference runs: mini-batches (``fig2_batch``),
+   ``rng="fast"``, the fault, participation, async and bf16-payload
+   layers.
 1. **Cache check** — each cell's content hash (spec + schema version) is
    looked up under ``<out_dir>/cells/<hash>.json``; hits short-circuit the
    whole cell (no design solve, no simulation). The default ``out_dir``
@@ -55,7 +54,6 @@ from typing import Callable, Optional
 
 from ..core import digital_design, ota_design
 from ..device import resolve_device
-from ..fl.engine import check_slice
 from . import materialize as mat
 from . import schemes
 from .plan import Cell, Plan, plan as make_plan
@@ -96,12 +94,10 @@ def _load_cached(path: Path) -> Optional[dict]:
 
 
 def _check_supported(pl: Plan) -> None:
-    """Refuse, before any solve or write, a plan whose cells need what
-    the port's engine does not run yet (``fl.engine.check_slice``) or a
-    backend it does not have."""
+    """Refuse, before any solve or write, a plan whose cells ask for a
+    backend the port does not have."""
     for cell in pl.cells:
         r = cell.scenario.run
-        check_slice(batch_size=r.batch_size, rng=r.rng)
         if r.backend != "auto":
             raise ValueError(
                 f"cell {cell.index}: run.backend={r.backend!r}; the port "

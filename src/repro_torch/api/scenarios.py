@@ -4,9 +4,7 @@
 Each builder returns the reference's pure-data ``ScenarioSpec``/
 ``SweepSpec`` (same seeds, sizes, suites, tuning grids, hence the same
 ``spec_hash``). ``REGISTRY`` backs the CLI
-(``python -m repro_torch.api.cli run/list/describe``). ``fig2_batch``
-needs mini-batches, which the port's engine does not run yet;
-``api.execute`` refuses it, naming ROADMAP Queue 1 item 9.
+(``python -m repro_torch.api.cli run/list/describe``).
 """
 from __future__ import annotations
 
@@ -242,8 +240,7 @@ def fig2_batch(quick: bool = True, n_devices: int = 50) -> SweepSpec:
     re-runs the Fig.-2 OTA comparison with minibatch SGD at increasing
     batch sizes (None = full batch) to show the designed bias-variance
     trade-off is preserved under gradient noise — one ``cli run
-    fig2_batch`` away instead of a hand-rolled loop. Needs mini-batches
-    (ROADMAP Queue 1 item 9).
+    fig2_batch`` away instead of a hand-rolled loop.
     """
     base = fig2_ota_sc(quick=quick, n_devices=n_devices).replace(
         name="fig2_batch")

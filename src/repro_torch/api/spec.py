@@ -15,10 +15,7 @@ expands to the cross product of override-applied scenarios
 
 Every dataclass here has the reference's fields, order, defaults and
 types, so ``spec_hash`` gives the reference's hash for the same spec and
-the two packages' results can be compared by it. ``run.batch_size`` (the
-mini-batches of ``fig2_batch``) and ``run.rng="fast"`` still declare and
-hash here, but ``api.execute`` refuses them, naming ROADMAP Queue 1
-item 9.
+the two packages' results can be compared by it.
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@ PL(s) = PL0 + 10*Omega*log10(s/s0) [dB], Lambda_m = 10^{-PL/10}, and
 Rayleigh block fading h_{m,t} ~ CN(0, Lambda_m), i.i.d. over rounds. The
 streams are the reference's bit for bit (same generators, same seeds), so
 a port run replays the reference's fading exactly.
+
+``rng="fast"`` draws the fading from the counter-based threefry stream
+instead (``sample_fading_fast``, the reference's ``sample_fading_jax``):
+the same Rayleigh law, another stream, made on the device.
 """
 from __future__ import annotations
 
@@ -13,6 +17,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from . import rngstream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +90,32 @@ def sample_fading(lambdas: np.ndarray, seed: int, t: int) -> np.ndarray:
     re = rng.normal(size=n) * scale
     im = rng.normal(size=n) * scale
     return re + 1j * im
+
+
+def _fading_fast(key, lambdas, device) -> torch.Tensor:
+    """h = (z0 + i z1) sqrt(Lambda / 2) from the f64 normals z (2, N) of
+    ``key`` (a key pair, ints or (..., 1) tensors): complex128 (..., N)."""
+    z = rngstream.normal_f64(key, (2, len(lambdas)), device=device)
+    scale = torch.sqrt(torch.as_tensor(np.asarray(lambdas, np.float64),
+                                       device=device) / 2.0)
+    return torch.complex(z[..., 0, :] * scale, z[..., 1, :] * scale)
+
+
+def sample_fading_fast(key, t: int, lambdas, *,
+                       device="cpu") -> torch.Tensor:
+    """Counter-based h_{m,t} ~ CN(0, Lambda_m) (the reference's
+    ``sample_fading_jax``) from ``fold_in(key, t)``; ``key`` is
+    ``stream_base_key(seed, trial, FADING_TAG)``. Complex128 (N,)."""
+    return _fading_fast(rngstream.fold_in(key, t), lambdas, device)
+
+
+def fading_abs_fast(keys, rounds: int, lambdas, *, t0: int = 0,
+                    device="cpu") -> torch.Tensor:
+    """(K, rounds, N) f64 |h| of :func:`sample_fading_fast` for K trial
+    keys and rounds t0 .. t0 + rounds - 1, in one pass on ``device``."""
+    return torch.abs(_fading_fast(
+        rngstream.round_keys(keys, rounds, t0=t0, device=device), lambdas,
+        device))
 
 
 def sample_fading_batch(lambdas: np.ndarray, seed: int,

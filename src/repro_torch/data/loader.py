@@ -1,12 +1,9 @@
-"""Per-device dataset handles (NumPy copy of ``repro.data.loader``).
-
-The port's slice trains full-batch (|B| = |D|, paper Sec. V), so a device
-dataset is just its arrays; mini-batch draws arrive with ROADMAP Queue 1
-item 9.
-"""
+"""Per-device dataset handles and mini-batch sampling (NumPy copy of
+``repro.data.loader``)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -18,6 +15,31 @@ class DeviceDataset:
 
     def __len__(self):
         return self.x.shape[0]
+
+    def batch(self, batch_size: Optional[int],
+              rng: Optional[np.random.Generator] = None, *,
+              indices: Optional[np.ndarray] = None):
+        """Full-batch when batch_size is None (paper Sec. V: |B|=|D|).
+
+        Mini-batches take the counter-based draw
+        (``core.rngstream.batch_indices``, the engine's) as ``indices``;
+        a sequential ``rng`` is the legacy path and needs ``indices`` to
+        be None.
+        """
+        if rng is not None and indices is not None:
+            raise ValueError("pass counter-based indices OR a legacy rng, "
+                             "not both (the rng would be silently unused)")
+        if batch_size is None or batch_size >= len(self):
+            return self.x, self.y
+        if indices is None:
+            if rng is None:
+                raise ValueError(
+                    "mini-batch draw needs counter-based indices "
+                    "(core.rngstream.batch_indices) or a legacy rng")
+            idx = rng.choice(len(self), size=batch_size, replace=False)
+        else:
+            idx = np.asarray(indices)
+        return self.x[idx], self.y[idx]
 
 
 @dataclasses.dataclass

@@ -37,3 +37,15 @@ def partition_by_class(x: np.ndarray, y: np.ndarray, n_devices: int,
         shards.append((np.concatenate(xs), np.concatenate(ys)))
     return shards
 
+
+
+def partition_iid(x: np.ndarray, y: np.ndarray, n_devices: int,
+                  samples_per_device: int, seed: int = 0):
+    """Homogeneous split (used in ablations)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(x.shape[0])
+    shards = []
+    for m in range(n_devices):
+        take = perm[m * samples_per_device:(m + 1) * samples_per_device]
+        shards.append((x[take], y[take]))
+    return shards

@@ -1,6 +1,6 @@
-from .tasks import MLPTask, SoftmaxRegressionTask
+from .tasks import MLPTask, SoftmaxRegressionTask, SyntheticHighDimTask
 from .trainer import FLTrainer
 from .engine import FLEngine, TrainLog
 
-__all__ = ["MLPTask", "SoftmaxRegressionTask", "FLTrainer", "FLEngine",
-           "TrainLog"]
+__all__ = ["MLPTask", "SoftmaxRegressionTask", "SyntheticHighDimTask",
+           "FLTrainer", "FLEngine", "TrainLog"]

@@ -10,14 +10,33 @@ the reference's (``repro/fl/engine.py:746-907``): cumulative wall-clock
 rides per trial, a round runs iff the wall-clock before it is under the
 budget, and each eval reports the last live model.
 
-Random streams replay the reference's ``rng="replay"`` mode bit for bit:
-fading from ``channel.sample_fading_batch(lambdas, seed*1000 + trial, T)``,
-PS AWGN from ``trial_rng(seed, trial).standard_normal((T, d))``, the
-digital baselines' selection draws from the same sequential generator
-through each port's ``sel_stream_np`` (all NumPy, made on the host and
-copied to the device once per run), and dither from the counter-based
-threefry stream ``rngstream.dither_blocks`` (one (trials, N, d) block per
-round, made on the device).
+Two random-stream modes, as the reference's (``run(..., rng=...)``):
+
+  * ``rng="replay"`` (default) replays the reference's replay mode bit
+    for bit: fading from ``channel.sample_fading_batch(lambdas,
+    seed*1000 + trial, T)``, PS AWGN from ``trial_rng(seed,
+    trial).standard_normal((T, d))``, the digital baselines' selection
+    draws from the same sequential generator through each port's
+    ``sel_stream_np`` (all NumPy, made on the host and copied to the
+    device once per run);
+  * ``rng="fast"`` draws the fading (``channel.fading_abs_fast``), the
+    PS AWGN (``rngstream.noise_blocks``) and the selection rows (each
+    port's ``sel_stream_fast``) from the counter-based threefry streams
+    of ``(seed, trial, round)``, tags 43, 41 and 47, on the device with
+    no host precompute: the reference's fast mode, the same law as
+    replay but another stream.
+
+In both modes the dither (``rngstream.dither_blocks``, one (trials, N, d)
+block a round), the mini-batch indices and the layers' uniforms are
+counter-based and the same. Mini-batches (``batch_size``) follow the
+reference's three regimes (``repro/fl/engine.py:590-689``): devices of
+equal size draw ``rngstream.batch_blocks`` rows from one stacked
+(N, n, F) array; unequal sizes zero-pad the stacks to the largest, each
+row drawing from its own size (ragged); and where the batch covers some
+device (mixed), that device gathers its whole dataset and the gradient
+weighs each row (1/n_m on its real rows, 0 on the duplicates, 1/B on a
+drawn batch) through ``task.device_grads_at_weighted``. The draws are
+made a chunk of rounds at a time on the device.
 
 The reference's robustness layers transform each round's payloads
 upstream of every scheme's combiner, in its order (``repro/fl/engine.py:
@@ -34,9 +53,9 @@ normalize to no layer, and the round runs the program without it. Under
 faults a round in which a delivering straggler takes part is stretched
 by ``straggler_mult`` and a deadline caps it, per trial on the device.
 
-The engine covers replay and full batches for all 15 Sec. V schemes;
-mini-batches and ``rng="fast"`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The engine covers both modes, full and mini-batches for all 15 Sec. V
+schemes on one device; trials across cards (``shard_trials=True``)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -50,7 +69,8 @@ from ..core import async_fl
 from ..core import baselines as B
 from ..core import participation as participation_lib
 from ..core import rngstream
-from ..core.channel import Deployment, sample_fading_batch
+from ..core.channel import (Deployment, fading_abs_fast,
+                            sample_fading_batch)
 from ..core.digital import (alloc_latency, capacity_rate, digital_round,
                             greedy_bit_alloc, outage_mask, sum_in_order,
                             topk_mask)
@@ -61,13 +81,11 @@ from ..core.quantize import payload_bits
 from ..device import resolve_device
 from ..kernels import ops
 
-_LATER = "ROADMAP Queue 1 item 9 (engine layers off the main path)"
-#: what each refused option waits for, in item 9's order
-_LATER_STEP = {
-    "batch_size": "the mini-batch streams (batch_indices / batch_block "
-                  "with JAX's permutation shuffle)",
-    "rng": "the fast streams (noise_block, sample_fading_jax, "
-           "sel_stream_jax)"}
+_LATER = ("ROADMAP Queue 1 item 10 step 6 (multi-card: trials across "
+          "cards)")
+
+#: entries of one chunk of a stream's rounds (``_Chunked``)
+_CHUNK_ENTRIES = 1 << 22
 
 
 @dataclasses.dataclass
@@ -108,6 +126,10 @@ class SchemePort:
     # (trials, T, S) replayed draws -> the (trials, T, S') rows round_fn
     # reads as ``sel``, on the host once per run (FedTOE's allocation)
     sel_plan: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    # fast-mode analog of sel_stream_np (the reference's sel_stream_jax):
+    # round-folded SELECT_TAG keys, a pair of int64 (..., 1) tensors ->
+    # (..., S) f64 rows in sel_stream_np's layout, made on the device
+    sel_stream_fast: Optional[Callable] = None
 
 
 # ------------------------------------------------------- OTA scheme ports
@@ -284,14 +306,19 @@ def _best_channel_norm(agg, use_kernel):
 
 
 def _choice_stream(agg):
-    """Replay of ``rng.choice(N, size=K, replace=False)`` once a round."""
+    """Replay of ``rng.choice(N, size=K, replace=False)`` once a round,
+    and its fast form ``jax.random.choice(key, N, (K,), replace=False)``."""
     n, k = agg.dep.n_devices, agg.k
 
     def sel_stream(seed, trial, T):
         return rngstream.replay_rounds(
             seed, trial, T, lambda rng: rng.choice(n, size=k, replace=False))
 
-    return sel_stream
+    def sel_stream_fast(key):
+        return rngstream.choice_without_replacement(
+            key, n, k, device=key[0].device).to(torch.float64)
+
+    return dict(sel_stream_np=sel_stream, sel_stream_fast=sel_stream_fast)
 
 
 def _uqos(agg, use_kernel):
@@ -309,6 +336,14 @@ def _uqos(agg, use_kernel):
             return np.concatenate([rng.permutation(n).astype(np.float64),
                                    rng.uniform(size=n)])
         return rngstream.replay_rounds(seed, trial, T, draw)
+
+    def sel_stream_fast(key):
+        # the replay row's layout: permutation, then inclusion keys
+        kp, ku = rngstream.split(key, 2)
+        dev = key[0].device
+        return torch.cat([
+            rngstream.permutation(kp, n, device=dev).to(torch.float64),
+            rngstream.uniform_f64(ku, (n,), device=dev)], dim=-1)
 
     def round_fn(g, habs, z01, u, sel, t):
         pi_t = torch.as_tensor(pi, device=g.device)
@@ -328,7 +363,8 @@ def _uqos(agg, use_kernel):
         return acc, lat
 
     return SchemePort(agg.name, False, round_fn, needs_noise=False,
-                      needs_dither=True, sel_stream_np=sel_stream)
+                      needs_dither=True, sel_stream_np=sel_stream,
+                      sel_stream_fast=sel_stream_fast)
 
 
 def _qml(agg, use_kernel):
@@ -342,7 +378,7 @@ def _qml(agg, use_kernel):
         return _quantized_mean(g, chi, chi * r, u, k, use_kernel, r), lat
 
     return SchemePort(agg.name, False, round_fn, needs_noise=False,
-                      needs_dither=True, sel_stream_np=_choice_stream(agg))
+                      needs_dither=True, **_choice_stream(agg))
 
 
 def _fedtoe(agg, use_kernel):
@@ -372,8 +408,8 @@ def _fedtoe(agg, use_kernel):
         return acc, sel[..., 2 * n]
 
     return SchemePort(agg.name, False, round_fn, needs_noise=False,
-                      needs_dither=True, sel_stream_np=_choice_stream(agg),
-                      sel_plan=sel_plan)
+                      needs_dither=True, sel_plan=sel_plan,
+                      **_choice_stream(agg))
 
 
 #: scheme type -> port factory ``(agg, use_kernel) -> SchemePort``
@@ -491,34 +527,119 @@ def _project(w: torch.Tensor, radius: float) -> torch.Tensor:
     return w * torch.clamp(radius / torch.clamp(nrm, min=1e-300), max=1.0)
 
 
-def check_slice(*, batch_size=None, rng="replay") -> None:
-    """Raise ``NotImplementedError`` for the options the port's engine
-    does not run yet: mini-batches and ``rng="fast"``."""
-    for opt, value, base in (("batch_size", batch_size, None),
-                             ("rng", rng, "replay")):
-        if value != base:
-            raise NotImplementedError(
-                f"{opt}={value!r} is not in the port yet (full batches, "
-                f"rng='replay'); it arrives with {_LATER}: "
-                f"{_LATER_STEP[opt]}")
+def check_slice(*, shard_trials: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what the port's engine does not
+    run yet: trials laid over several cards."""
+    if shard_trials:
+        raise NotImplementedError(
+            f"shard_trials=True is not in the port yet (one card a run); "
+            f"it arrives with {_LATER}")
+
+
+class _Chunked:
+    """A stream's (trials, rounds, ...) draws made ``rounds`` at a time by
+    ``make(t0, rounds)``, about ``_CHUNK_ENTRIES`` entries a chunk, read
+    one round at a time in order."""
+
+    def __init__(self, make, entries_per_round: int, T: int):
+        self.make, self.T = make, T
+        self.rounds = max(1, _CHUNK_ENTRIES // max(1, entries_per_round))
+        self.t0, self.block = 0, None
+
+    def __getitem__(self, t: int) -> torch.Tensor:
+        if self.block is None or not (self.t0 <= t
+                                      < self.t0 + self.block.shape[1]):
+            self.t0 = t
+            self.block = self.make(t, min(self.rounds, self.T - t))
+        return self.block[:, t - self.t0]
+
+
+class _Streams:
+    """One run's per-round draws on the engine's device: |h|, the PS AWGN
+    and the selection rows (replayed from NumPy's sequential generators or
+    drawn from the fast threefry streams) and the mini-batch indices."""
+
+    def __init__(self, engine, port: SchemePort, seed: int, trials: int,
+                 T: int, rng: str):
+        dev = engine.device
+        d, N = engine.task.dim, engine.dep.n_devices
+        lambdas = engine.dep.lambdas
+        self.z = self.sel = self.idx = None
+        if rng == "fast":
+            if port.sel_stream_np is not None and port.sel_stream_fast is None:
+                raise ValueError(
+                    f"{port.name} consumes selection randomness but its "
+                    "port has no fast-mode sampler (sel_stream_fast); use "
+                    "rng='replay'")
+
+            def keys(tag):
+                return [rngstream.stream_base_key(seed, tr, tag)
+                        for tr in range(trials)]
+
+            fkeys = keys(rngstream.FADING_TAG)
+            self.habs = _Chunked(lambda t0, r: fading_abs_fast(
+                fkeys, r, lambdas, t0=t0, device=dev), trials * 2 * N, T)
+            if port.needs_noise:
+                zkeys = keys(rngstream.NOISE_TAG)
+                self.z = _Chunked(lambda t0, r: rngstream.noise_blocks(
+                    zkeys, t0, r, d, device=dev), trials * d, T)
+            if port.sel_stream_np is not None:
+                sel = port.sel_stream_fast(rngstream.round_keys(
+                    keys(rngstream.SELECT_TAG), T, device=dev))
+                if port.sel_plan is not None:
+                    sel = torch.as_tensor(port.sel_plan(sel.cpu().numpy()),
+                                          device=dev)
+                self.sel = sel                            # (trials, T, S)
+        else:
+            self.habs = torch.as_tensor(np.abs(np.stack(
+                [sample_fading_batch(lambdas, seed * 1000 + tr, T)
+                 for tr in range(trials)])), device=dev)  # (trials, T, N)
+            if port.needs_noise:
+                self.z = torch.as_tensor(np.stack(
+                    [rngstream.trial_rng(seed, tr).standard_normal((T, d))
+                     for tr in range(trials)]), device=dev)
+            if port.sel_stream_np is not None:
+                sel = np.stack([port.sel_stream_np(seed, tr, T)
+                                for tr in range(trials)])  # (trials, T, S)
+                if port.sel_plan is not None:
+                    sel = port.sel_plan(sel)
+                self.sel = torch.as_tensor(sel, device=dev)
+        if engine.batch_size is not None:
+            bkeys = [rngstream.batch_base_key(seed, tr)
+                     for tr in range(trials)]
+            sizes, B = engine.sizes, engine.batch_size
+            self.idx = _Chunked(lambda t0, r: rngstream.batch_blocks(
+                bkeys, t0, r, sizes, B, mixed=engine.batch_wts is not None,
+                device=dev), trials * N * max(sizes), T)
+
+    def round(self, t: int) -> tuple:
+        """(|h| (trials, N), z01 (trials, d) or None, sel (trials, S) or
+        None, batch indices (trials, N, B) or None) of round ``t``."""
+        def at(a):
+            return None if a is None else a[:, t] if torch.is_tensor(a) \
+                else a[t]
+        return at(self.habs), at(self.z), at(self.sel), at(self.idx)
 
 
 class FLEngine:
     """Trials-batched Monte-Carlo FL simulator on one device.
 
-    Device data are stacked once: xs (N, n, F) f32, ys (N, n) int64.
-    ``use_kernel=False`` runs the plain PyTorch versions of the kernels.
+    Device data are stacked once: xs (N, n, F) f32, ys (N, n) int64,
+    zero-padded to the largest device where sizes differ (which needs
+    mini-batches). ``use_kernel=False`` runs the plain PyTorch versions
+    of the kernels.
     """
 
     def __init__(self, task, dataset, deployment: Deployment, eta: float, *,
                  project_radius: Optional[float] = None,
                  batch_size: Optional[int] = None,
-                 use_kernel: bool = True, payload_dtype: str = "f32",
+                 use_kernel: bool = True, shard_trials: bool = False,
+                 payload_dtype: str = "f32",
                  fault=None, clients_per_round: Optional[int] = None,
                  participation: str = "uniform", participation_probs=None,
                  mode: str = "sync", async_spec=None, async_weights=None,
                  device=None):
-        check_slice(batch_size=batch_size)
+        check_slice(shard_trials=shard_trials)
         if payload_dtype not in ("f32", "bf16"):
             raise ValueError(
                 f"payload_dtype must be 'f32' or 'bf16', got {payload_dtype!r}")
@@ -527,10 +648,17 @@ class FLEngine:
         self.fault = fault if fault is not None and fault.enabled else None
         self.async_ = async_fl.resolve(mode, async_spec,
                                        deployment.n_devices, async_weights)
-        sizes = {len(d) for d in dataset.devices}
-        if len(sizes) != 1:
-            raise ValueError("full-batch training needs equal-sized device "
-                             f"datasets (got sizes {sorted(sizes)})")
+        sizes = tuple(len(d) for d in dataset.devices)
+        if len(set(sizes)) == 1:
+            self.batch_size = self.effective_batch_size(batch_size, sizes[0])
+        elif batch_size is None:
+            raise ValueError(
+                "FLEngine needs a mini-batch size when device datasets "
+                f"have unequal sizes (got sizes {sorted(set(sizes))}); "
+                "use backend='numpy' for full-batch unequal runs")
+        else:
+            self.batch_size = batch_size
+        self.sizes = sizes
         self.device = resolve_device(device)
         # the loss / datasize policies weigh devices by (task, dataset)
         part_weights = None
@@ -548,25 +676,68 @@ class FLEngine:
         self.project_radius = project_radius
         self.use_kernel = use_kernel
         dev = self.device
-        self.xs = torch.as_tensor(
-            np.stack([d.x for d in dataset.devices]).astype(np.float32),
-            device=dev)
-        self.ys = torch.as_tensor(
-            np.stack([d.y for d in dataset.devices]).astype(np.int64),
-            device=dev)
-        self.x_all = self.xs.reshape(-1, self.xs.shape[-1])
-        self.y_all = self.ys.reshape(-1)
+        # unequal sizes: each device zero-padded to the largest; no batch
+        # row reaches the padding
+        n_max, d0 = max(sizes), dataset.devices[0]
+        xs = np.zeros((len(sizes), n_max) + d0.x.shape[1:], np.float32)
+        ys = np.zeros((len(sizes), n_max), np.int64)
+        for m, dd in enumerate(dataset.devices):
+            xs[m, :len(dd)] = dd.x
+            ys[m, :len(dd)] = dd.y
+        self.xs = torch.as_tensor(xs, device=dev)
+        self.ys = torch.as_tensor(ys, device=dev)
+        if len(set(sizes)) == 1:
+            self.x_all = self.xs.reshape(-1, self.xs.shape[-1])
+            self.y_all = self.ys.reshape(-1)
+        else:
+            # the global loss over the real rows only
+            self.x_all = torch.as_tensor(np.concatenate(
+                [d.x for d in dataset.devices]).astype(np.float32),
+                device=dev)
+            self.y_all = torch.as_tensor(np.concatenate(
+                [d.y for d in dataset.devices]).astype(np.int64), device=dev)
+        # mixed full/mini regime: a device the batch covers runs its whole
+        # dataset, each row weighted 1/n_m (0 on the clipped duplicates),
+        # a mini device's rows 1/B, as f32 like the reference's
+        self.batch_wts = None
+        if len(set(sizes)) > 1 and self.batch_size >= min(sizes):
+            wts = np.zeros((len(sizes), self.batch_size), np.float32)
+            for m, n_m in enumerate(sizes):
+                if n_m <= self.batch_size:
+                    wts[m, :n_m] = 1.0 / n_m
+                else:
+                    wts[m, :] = 1.0 / self.batch_size
+            self.batch_wts = torch.as_tensor(wts, device=dev)
         self.x_test = torch.as_tensor(
             np.asarray(dataset.x_test, np.float32), device=dev)
         self.y_test = torch.as_tensor(
             np.asarray(dataset.y_test, np.int64), device=dev)
+
+    @staticmethod
+    def effective_batch_size(batch_size: Optional[int],
+                             n_data: int) -> Optional[int]:
+        """batch_size >= |D_m| is full-batch (``DeviceDataset.batch``)."""
+        return (None if batch_size is not None and batch_size >= n_data
+                else batch_size)
+
+    def _grads(self, w32: torch.Tensor, idx) -> torch.Tensor:
+        """The round's (trials, N, d) f32 device gradients: full batches,
+        the drawn (trials, N, B) rows, or the mixed regime's weighted
+        rows."""
+        if idx is None:
+            return self.task.device_grads(w32, self.xs, self.ys)
+        if self.batch_wts is not None:
+            return self.task.device_grads_at_weighted(
+                w32, self.xs, self.ys, idx, self.batch_wts)
+        return self.task.device_grads_at(w32, self.xs, self.ys, idx)
 
     def run(self, aggregator, *, rounds: int, trials: int = 3,
             eval_every: int = 10, seed: int = 0,
             w_star: Optional[np.ndarray] = None,
             time_budget_s: Optional[float] = None,
             rng: str = "replay") -> TrainLog:
-        check_slice(rng=rng)
+        if rng not in ("replay", "fast"):
+            raise ValueError(f"rng must be 'replay' or 'fast', got {rng!r}")
         port = scheme_port(aggregator, use_kernel=self.use_kernel)
         dev = self.device
         eval_rounds = list(range(0, rounds + 1, eval_every))
@@ -574,21 +745,7 @@ class FLEngine:
         T = n_seg * eval_every      # rounds past the last eval are unobserved
         d, N = self.task.dim, self.dep.n_devices
 
-        habs = torch.as_tensor(np.abs(np.stack(
-            [sample_fading_batch(self.dep.lambdas, seed * 1000 + tr, T)
-             for tr in range(trials)])), device=dev)          # (trials, T, N)
-        Z = None
-        if port.needs_noise:
-            Z = torch.as_tensor(np.stack(
-                [rngstream.trial_rng(seed, tr).standard_normal((T, d))
-                 for tr in range(trials)]), device=dev)       # (trials, T, d)
-        SEL = None
-        if port.sel_stream_np is not None:
-            sel = np.stack([port.sel_stream_np(seed, tr, T)
-                            for tr in range(trials)])         # (trials, T, S)
-            if port.sel_plan is not None:
-                sel = port.sel_plan(sel)
-            SEL = torch.as_tensor(sel, device=dev)
+        streams = _Streams(self, port, seed, trials, T, rng)
         dkeys = [rngstream.dither_base_key(seed, tr) for tr in range(trials)]
         radius = (np.inf if self.project_radius is None
                   else float(self.project_radius))
@@ -609,15 +766,13 @@ class FLEngine:
             # a trial stops on the first round whose preceding cumulative
             # wall-clock reached the budget; its state freezes from there
             active = t_wall < budget
-            g = self.task.device_grads(w.to(torch.float32), self.xs,
-                                       self.ys).to(torch.float64)
+            habs_t, z_t, sel_t, idx_t = streams.round(t)
+            g = self._grads(w.to(torch.float32), idx_t).to(torch.float64)
             if layers is not None:
-                g = layers.payloads(g, t, habs[:, t])
+                g = layers.payloads(g, t, habs_t)
             u = (rngstream.dither_blocks(dkeys, t, N, d, device=dev)
                  if port.needs_dither else None)
-            ghat, lat = port.round_fn(g, habs[:, t],
-                                      None if Z is None else Z[:, t], u,
-                                      None if SEL is None else SEL[:, t], t)
+            ghat, lat = port.round_fn(g, habs_t, z_t, u, sel_t, t)
             w = torch.where(active[:, None], _project(w - self.eta * ghat,
                                                       radius), w)
             # division (not a reciprocal multiply), as the reference

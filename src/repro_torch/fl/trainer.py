@@ -1,18 +1,19 @@
 """FL training entry point (counterpart of ``repro.fl.trainer``).
 
 Matches Sec. V's protocol: a fixed device deployment across trials,
-independent fading and PS noise per trial, full-batch local gradients,
-projection onto the ball {||w|| <= D/2} when ``project_radius`` is set,
-and per-round latency accounting (OTA: d/B; digital: realized TDMA time),
+independent fading and PS noise per trial, full-batch local gradients
+(or SGD mini-batches of ``batch_size``, counter-based draws), projection
+onto the ball {||w|| <= D/2} when ``project_radius`` is set, and
+per-round latency accounting (OTA: d/B; digital: realized TDMA time),
 with an optional wall-clock budget. Runs on the trials-batched engine
 (``fl.engine.FLEngine``) on ``device`` (default: the card).
 
-``FLTrainer`` takes the reference's arguments and hands the fault,
-partial-participation, buffered-async and bf16-payload options to the
-engine, which validates them with the reference's messages; each is a
-strict no-op at its default. Mini-batches and ``rng="fast"`` raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 9
-(``fl.engine.check_slice``).
+``FLTrainer`` takes the reference's arguments and hands the mini-batch,
+fault, partial-participation, buffered-async and bf16-payload options to
+the engine, which validates them with the reference's messages; each is
+a strict no-op at its default. ``run(rng="fast")`` draws the fading, the
+PS noise and the selection from the counter-based streams on the device
+(the reference's fast mode); ``rng="replay"`` replays its NumPy streams.
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ from .core.ota import OTAParams
 from .core.ota_design import OTADesignSpec
 from .core.participation import ResolvedParticipation
 from .data.loader import FLDataset
+from .fl.tasks import MLPTask, SoftmaxRegressionTask, SyntheticHighDimTask
 from .kernels.ops import PackedGrads
 from .kernels.ref import LANES, payload_word_rows
 
@@ -156,6 +157,23 @@ def scheme(ref):
         return getattr(B, kind)(deployment(ref.dep), ref.dim, ref.g_max,
                                 ref.e_s, ref.n0, ref.B, **kw)
     raise TypeError(f"{kind} is not a scheme of repro.core.baselines")
+
+
+def task(ref):
+    """A ``repro.fl.tasks`` task -> the port's task of the same
+    constructor arguments (``SyntheticHighDimTask`` by its dim, g_max
+    and seed)."""
+    kind = type(ref).__name__
+    if kind == "SoftmaxRegressionTask":
+        return SoftmaxRegressionTask(ref.n_features, ref.n_classes,
+                                     mu=ref.mu, g_max=ref.g_max)
+    if kind == "MLPTask":
+        return MLPTask(ref.n_features, ref.hidden, ref.n_classes,
+                       mu_nc=ref.mu_nc, g_max=ref.g_max, seed=ref._seed)
+    if kind == "SyntheticHighDimTask":
+        return SyntheticHighDimTask(ref.dim, g_max=ref.g_max,
+                                    seed=ref._seed)
+    raise TypeError(f"{kind} is not a task of repro.fl.tasks")
 
 
 def load_weights(task, w) -> None:

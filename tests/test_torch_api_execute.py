@@ -8,10 +8,11 @@ on the CPU, through the ``ref`` fixture:
   * kappa_nc at Fig. 3's quick sizes within 1e-6 relative;
   * a second ``execute`` touches neither solver nor trainer, and a
     corrupt cell is quarantined and recomputed;
-  * what still needs ROADMAP Queue 1 item 9 (``fig2_batch``'s
-    mini-batches, ``rng="fast"``) raises before any design solve or file
-    write, as does another backend (the fault, participation and async
-    sweeps run: ``test_torch_api_sweeps.py``);
+  * ``fig2_batch``'s mini-batches and ``rng="fast"`` run through
+    ``execute`` (against the reference: ``test_torch_api_batch.py``);
+    another backend is refused before any design solve or file write
+    (the fault, participation and async sweeps run:
+    ``test_torch_api_sweeps.py``);
   * the port's results root is its own: a reference cell under the
     reference's root is never read back as the port's;
   * without a card the default device raises.
@@ -186,26 +187,42 @@ def test_corrupt_cell_is_quarantined_and_recomputed(tmp_path):
         rs.cell(0).logs[0]["loss_mean"]
 
 
-# ------------------------------------------------ the item-9 scenarios
+# ------------------------------------------ the scenarios of item 9
 
-LATER = {"fig2_batch": lambda: scenarios.get("fig2_batch"),
-         "rng_fast": lambda: scenarios.sweep_smoke().base.override(
-             "run.rng", "fast")}
+def _cut(spec):
+    """A spec cut to 4 rounds, one step size and Proposed OTA, kappa
+    fixed (no estimate)."""
+    for path, value in (("run.rounds", 4), ("run.eval_every", 2),
+                        ("run.etas", (0.5,)), ("design.kappa", 3.0),
+                        ("schemes", ("proposed_ota",))):
+        spec = spec.override(path, value)
+    return spec
+
+
+LATER = {"fig2_batch": lambda: scenarios.SweepSpec(
+             name="fig2_batch", base=_cut(scenarios.get("fig2_batch").base),
+             axes=scenarios.get("fig2_batch").axes),
+         "rng_fast": lambda: _cut(scenarios.sweep_smoke().base.override(
+             "run.rng", "fast"))}
 
 
 @pytest.mark.parametrize("name", list(LATER))
-def test_later_scenarios_raise_before_any_solve_or_write(name, tmp_path,
-                                                         monkeypatch):
-    def boom(*a, **k):
-        raise AssertionError("solved before refusing")
-
-    for fn in ("design_ota_batch", "design_ota_sca", "design_ota_direct"):
-        monkeypatch.setattr(ota_design, fn, boom)
-    monkeypatch.setattr(mat, "materialize", boom)
+def test_later_scenarios_raise_before_any_solve_or_write(name, tmp_path):
+    """The scenarios that waited for ROADMAP Queue 1 item 9 (mini-batches,
+    ``rng="fast"``) run through ``execute``: every cell computed and
+    written, finite losses, the cells' run options as declared."""
     out = tmp_path / name
-    with pytest.raises(NotImplementedError, match="item 9"):
-        execute(LATER[name](), out_dir=out, device="cpu")
-    assert not out.exists()
+    spec = LATER[name]()
+    rs = execute(spec, out_dir=out, device="cpu")
+    assert [c.status for c in rs] == ["computed"] * len(rs)
+    assert (out / "manifest.json").exists()
+    for cell in rs:
+        run = cell.payload["scenario"]["run"]
+        assert run["rng"] == ("fast" if name == "rng_fast" else "replay")
+        assert np.all(np.isfinite(cell.logs[0]["loss_mean"]))
+    if name == "fig2_batch":
+        assert [c.payload["scenario"]["run"]["batch_size"] for c in rs] \
+            == [16, 64, None]
 
 
 def test_other_backends_are_refused(tmp_path):
@@ -266,8 +283,9 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
 def test_trainer_takes_the_reference_signature(ref):
     """The reference's ``FLTrainer`` arguments: inert at their defaults
     (and where the reference leaves them inert), validated with the
-    reference's errors, the layers run; mini-batches and ``rng="fast"``
-    refused with ROADMAP Queue 1 item 9; one engine."""
+    reference's errors, the layers, mini-batches and ``rng="fast"`` run;
+    one engine, on one card (``shard_trials`` refused, naming ROADMAP
+    Queue 1 item 10)."""
     from repro_torch.core.async_fl import AsyncSpec
     spec = scenarios.sweep_smoke().base
     ctx = mat.materialize(spec, device="cpu")
@@ -293,11 +311,15 @@ def test_trainer_takes_the_reference_signature(ref):
                     participation_probs=[0.5] * 6)):
         log = FLTrainer(*args, device="cpu", **kw).run(agg, **run)
         assert np.all(np.isfinite(log.global_loss))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FLTrainer(*args, device="cpu", batch_size=16)
+    log = FLTrainer(*args, device="cpu", batch_size=16).run(agg, **run)
+    assert np.all(np.isfinite(log.global_loss))
     trainer = FLTrainer(*args, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.run(agg, rng="fast", **run)
+    log = trainer.run(agg, rng="fast", **run)
+    assert np.all(np.isfinite(log.global_loss))
+    assert not np.array_equal(log.global_loss, base.global_loss)
+    from repro_torch.fl import FLEngine
+    with pytest.raises(NotImplementedError, match="item 10"):
+        FLEngine(*args, device="cpu", shard_trials=True)
     for backend in ("numpy", "jax", "torch"):
         with pytest.raises(ValueError, match="one engine"):
             trainer.run(agg, backend=backend, **run)

@@ -32,6 +32,7 @@ import torch
 from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
 from repro_torch import interop
 from repro_torch.core import baselines as B
+from repro_torch.core import rngstream
 from repro_torch.core.digital import (capacity_rate, greedy_bit_alloc,
                                       topk_mask)
 from repro_torch.fl import FLTrainer, SoftmaxRegressionTask
@@ -405,9 +406,34 @@ def test_time_budget_freezes_on_the_same_round(case, trainers, name):
 
 
 @pytest.mark.parametrize("name", ["uqos", "qml", "fedtoe"])
-def test_fast_rng_raises_for_the_selection_schemes(case, trainers, name):
-    """The fast-mode selection samplers come with ROADMAP Queue 1 item 9;
-    until then ``rng="fast"`` is refused, not replayed."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainers[1].run(interop.scheme(case["schemes"][name]), rounds=2,
-                        trials=1, eval_every=1, rng="fast")
+def test_fast_rng_raises_for_the_selection_schemes(ref, case, trainers,
+                                                   monkeypatch, name):
+    """``rng="fast"`` runs the selection schemes: their rounds on the
+    reference's fast inputs (selection rows from ``sel_stream_jax``, the
+    fading from ``sample_fading_jax``) and reference-made gradients give
+    the reference engine's masks, bits, weights and latency, the rows
+    the port draws are those, and a fast run is finite."""
+    agg_r = case["schemes"][name]
+    fn = ref.engine.as_functional(agg_r).sel_stream_jax
+    jax, jnp = ref.jax, ref.jax.numpy
+    with jax.enable_x64():
+        sels = np.stack([np.stack([np.asarray(fn(jax.random.fold_in(
+            ref.rngstream.stream_base_key(SEED, tr, 47), t)))
+            for t in range(ROUNDS)]) for tr in range(TRIALS)])
+        h = np.stack([np.stack([np.asarray(ref.channel.sample_fading_jax(
+            ref.rngstream.stream_base_key(SEED, tr, 43), t,
+            jnp.asarray(case["dep"].lambdas))) for t in range(ROUNDS)])
+            for tr in range(TRIALS)])
+    port = scheme_port(interop.scheme(agg_r))
+    got = port.sel_stream_fast(rngstream.round_keys(
+        [rngstream.stream_base_key(SEED, tr, rngstream.SELECT_TAG)
+         for tr in range(TRIALS)], ROUNDS)).numpy()
+    np.testing.assert_array_equal(got, sels)
+    sent = 0
+    for t in range(ROUNDS):
+        sent += _check_round(ref, monkeypatch, agg_r, case["grads"],
+                             h[:, t], case["u"][:, t], sels[:, t], t)[2]
+    assert sent > 0
+    log = trainers[1].run(interop.scheme(agg_r), rounds=2, trials=1,
+                          eval_every=1, rng="fast")
+    assert np.all(np.isfinite(log.global_loss))

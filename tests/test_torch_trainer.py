@@ -142,26 +142,38 @@ def test_default_device_is_the_card(setup):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(batch_size=32), NotImplementedError, "ROADMAP Queue 1 item 9"),
+    (dict(batch_size=32), None, None),
     (dict(payload_dtype="f16"), ValueError, "'f32' or 'bf16'"),
     (dict(clients_per_round=7), ValueError, "n_devices=6"),
     (dict(mode="async", async_spec=AsyncSpec(weighting="designed")),
      ValueError, "explicit async_weights")])
 def test_options_outside_the_slice_raise(setup, option, error, match):
-    """Mini-batches wait for ROADMAP Queue 1 item 9; the bf16, sampling
-    and async layers run (``tests/test_torch_faults.py`` and its
-    siblings) and refuse what the reference refuses."""
+    """Mini-batches run (``tests/test_torch_batch.py`` holds them to the
+    reference); the bf16, sampling and async layers run
+    (``tests/test_torch_faults.py`` and its siblings) and refuse what the
+    reference refuses."""
+    def trainer():
+        return FLTrainer(setup["port_task"], interop.dataset(setup["ds"]),
+                         interop.deployment(setup["dep"]), setup["eta"],
+                         device="cpu", **option)
+
+    if error is None:
+        log = trainer().run(interop.scheme(setup["schemes"]["ota"]),
+                            rounds=2, trials=1, eval_every=1)
+        assert np.all(np.isfinite(log.global_loss))
+        return
     with pytest.raises(error, match=match):
-        FLTrainer(setup["port_task"], interop.dataset(setup["ds"]),
-                  interop.deployment(setup["dep"]), setup["eta"],
-                  device="cpu", **option)
+        trainer()
 
 
 def test_fast_rng_raises(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup["port_trainer"].run(interop.scheme(setup["schemes"]["ideal"]),
-                                  rounds=2, trials=1, eval_every=1,
-                                  rng="fast")
+    """``rng="fast"`` runs (``tests/test_torch_rng_fast.py``); Ideal FedAvg
+    on full batches draws nothing, so its fast run is its replay run."""
+    agg = interop.scheme(setup["schemes"]["ideal"])
+    run = dict(rounds=2, trials=1, eval_every=1)
+    fast = setup["port_trainer"].run(agg, rng="fast", **run)
+    replay = setup["port_trainer"].run(agg, **run)
+    np.testing.assert_array_equal(fast.global_loss, replay.global_loss)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -173,6 +185,8 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.kernels, repro_torch.core\n"
             "import repro_torch.optim, repro_torch.checkpoint\n"
             "import repro_torch.core.collectives, repro_torch.launch.train\n"
+            "import repro_torch.data, repro_torch.api, repro_torch.api.cli\n"
+            "from repro_torch.fl import SyntheticHighDimTask\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
