@@ -120,10 +120,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      from a profiled run every launch and the device ms per round; the
      layers' uniforms for a whole run made on the card equal the CPU's
      to the bit;
-     (b) ``sweep_fault`` (9 cells), ``sweep_participation`` (8) and
-     ``sweep_async`` (9 of its 27: the rate spread left at the base's
-     3.0, since each cell's designed weights take a co-design solve of
-     about 10 s on the card) at ``quick=False`` widths, 20 of 100
+     (b) ``sweep_fault`` (9 cells), ``sweep_participation`` (4 of its 8:
+     N left at the base's 50) and ``sweep_async`` (3 of its 27: the rate
+     spread and the discount left at the base's 3.0 and 0.8, since each
+     cell's designed weights take a co-design solve of 10-17 s on the
+     card) at ``quick=False`` widths, 20 of 100
      rounds, through ``execute``: the seconds of data + kappa, of each
      design group and of the schemes; each scheme's launches exactly as derived
      (the counts at 0 before each execute); finite losses, and Proposed
@@ -170,6 +171,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tokens and 32 decoded tokens: exactly one scan launch a recurrent
      layer in the prefill (64, 18) and none in decode, finite logits;
      prefill and decode tokens/s and the peak memory;
+   then the MoE models and the chunked (online-softmax) attention, which
+   launch no kernel (their reference is jnp code, not Pallas):
+     "moe_small_vs_cpu": qwen3-moe-30b-a3b and kimi-k2-1t-a32b at their
+     ``scaled_down()`` sizes (f32), 4 x 64 prompt tokens (T·k = 512 > 256:
+     the capacity path) and 8 fed decode tokens, on the card against the
+     CPU within 1e-4, with each layer's kept and dropped (token, expert)
+     assignments on both;
+     "chunked_vs_einsum": the two attention routes fed the same tokens,
+     qwen3-moe at full width cut to 2 layers in f32 (4 x 512, 8 decoded)
+     and gemma3-4b scaled down (4 x 600: two key chunks, the local rows'
+     first masked whole), logits within 1e-4 of the largest magnitude;
+     the main path "qwen3-moe-30b-a3b serve" at full width and depth (48
+     layers, d_model 2048, 32 heads / 4 KV heads of 128, qk_norm, 128
+     experts top-8 of d_ff 768, vocab 151,936; 30,532,122,624 bf16
+     parameters, 3,353,032,704 active), 4 x 512 prompt tokens and 32
+     decoded on the einsum route after a 2-token warm-up, and
+     "qwen3-moe-30b-a3b long prompt", 1 x 32,768 (prefill_32k's length,
+     its batch cut to 1) on the chunked route and 8 decoded: no kernel
+     launch, finite logits, tokens in range, at 4 x 512 the prefill run
+     again giving the same bits; init seconds, tokens/s, peak memory, the
+     experts layer 0 routed to, the share of assignments capacity
+     dropped and the largest hidden magnitude after the last layer (at
+     4 x 512 recorded in the repeated prefill, at 32,768 in the run);
 10. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
@@ -1843,9 +1867,12 @@ def layers_engine_runs(ota_p, dig_p, phase5_log):
 
 #: axes each sweep's card run leaves at the base spec's value, for the
 #: time limit: every sweep_async cell solves its designed weights once
-#: (about 10 s on the card, launch-bound), so its rate spread stays at
-#: 3.0, the base's, over K in {2, 4, 8} x discount in {0.6, 0.8, 1.0}
-SWEEP_FIXED = {"sweep_async": ("async_.rate_heterogeneity",)}
+#: (10-17 s on the card, launch-bound), so its rate spread and discount
+#: stay at 3.0 and 0.8, the base's, over K in {2, 4, 8}; sweep_participation
+#: keeps N = 50, the base's, over S in {8, 16} x {uniform, designed}
+SWEEP_FIXED = {"sweep_async": ("async_.rate_heterogeneity",
+                               "async_.staleness_discount"),
+               "sweep_participation": ("wireless.n_devices",)}
 
 
 def sweep_cut(name, rounds=20):
@@ -2342,6 +2369,264 @@ def serve_full(arch):
     del model, out
     free_card()
     return counts
+
+
+# ------------------------------------------------ MoE and chunked attention
+
+QWEN_MOE = "qwen3-moe-30b-a3b"
+KIMI = "kimi-k2-1t-a32b"
+QWEN_MOE_PARAMS = 30_532_122_624
+QWEN_MOE_ACTIVE = 3_353_032_704
+LONG_PROMPT = 32768                  # SHAPES["prefill_32k"].seq_len
+
+
+class MoeRouting:
+    """Records each MoE block's routing while active (it wraps
+    ``models.layers._moe_route``): per call, in layer order, the
+    (token, expert) assignments kept and dropped by capacity, the
+    capacity, and how many experts received a kept token. Reading them
+    synchronises, so timed runs go without it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self._layers, self._real = layers, layers._moe_route
+
+        def spy(cfg, probs, xf, C):
+            out = self._real(cfg, probs, xf, C)
+            _, dest, valid, _ = out[1]
+            self.calls.append(dict(
+                kept=int(valid.sum()), dropped=int((~valid).sum()),
+                capacity=C,
+                experts=int(torch.unique(dest[valid] // C).numel())))
+            return out
+
+        layers._moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._moe_route = self._real
+
+    def per_layer(self, key):
+        return [c[key] for c in self.calls]
+
+
+def moe_small_vs_cpu():
+    """qwen3-moe and kimi-k2 at their ``scaled_down()`` sizes (f32) served
+    on the card against the port's CPU run with the same weights, prompts
+    and decode tokens: logits within the tests' 1e-4. 4 x 64 prompt
+    tokens at top-2 of 4 experts give T·k = 512 > 256: the capacity path
+    (C = 160) runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import _capacity
+    for arch in (QWEN_MOE, KIMI):
+        small = get_config(arch).scaled_down()
+        cpu_m = make_model(small, seed=0, device="cpu")
+        card_m = make_model(small, seed=None)
+        card_m.load_state_dict(cpu_m.state_dict())
+        run = dict(batch=4, prompt_len=64, tokens=8, keep_logits=True)
+        T = 4 * 64
+        check(_capacity(small, T) < T * small.n_experts_per_tok,
+              f"scaled-down {arch}: 4 x 64 tokens miss the capacity path")
+        with MoeRouting() as r_cpu:
+            cpu = serve(cpu_m, **run)
+        with MoeRouting() as r_card:
+            card = serve(card_m, feed=cpu.generated, **run)
+        check(sum(card.prefill_launches.values())
+              + sum(card.decode_launches.values()) == 0,
+              f"scaled-down {arch} serve launched kernels")
+        worst = 0.0
+        for got, want in ((card.prefill_logits, cpu.prefill_logits),
+                          (card.decode_logits, cpu.decode_logits)):
+            got = got.cpu().double()
+            want = want.double()
+            scale = float(want.abs().max())
+            gap = (got - want).abs()
+            worst = max(worst, float(gap.max()) / scale)
+            check(bool((gap <= 1e-4 * want.abs() + 1e-4 * scale).all()),
+                  f"scaled-down {arch} serve: card vs CPU logits differ by "
+                  f"{float(gap.max())} (largest logit {scale})")
+        n = small.n_layers
+        emit(phase="moe_small_vs_cpu", arch=small.name, max_rel_diff=worst,
+             limit=1e-4, batch=4, prompt_len=64, tokens=8,
+             capacity=_capacity(small, T),
+             prefill_kept_card=r_card.per_layer("kept")[:n],
+             prefill_dropped_card=r_card.per_layer("dropped")[:n],
+             prefill_kept_cpu=r_cpu.per_layer("kept")[:n],
+             prefill_dropped_cpu=r_cpu.per_layer("dropped")[:n],
+             decode_dropped=sum(r_card.per_layer("dropped")[n:]))
+        del card_m, card
+        free_card()
+
+
+def logits_gap(a, b) -> float:
+    """The largest gap between two runs' logits over the largest |b|."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def chunked_vs_einsum():
+    """The two attention routes on the card, fed the same tokens:
+    qwen3-moe at full width cut to 2 layers in f32 (4 x 512 prompt tokens,
+    8 decoded), and gemma3-4b at its ``scaled_down()`` sizes (4 x 600: two
+    key chunks of 512, the local rows' first chunk masked whole past the
+    64-token window); prefill and decode logits within 1e-4 of the
+    largest magnitude."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS, serve
+    from repro_torch.models import make_model
+    chunked = {**SERVE_FLAGS, "attn_impl": "chunked"}
+    for arch, cfg, prompt in (
+            (QWEN_MOE, dataclasses.replace(get_config(QWEN_MOE), n_layers=2,
+                                           dtype=torch.float32), 512),
+            ("gemma3-4b", get_config("gemma3-4b").scaled_down(), 600)):
+        model = make_model(cfg, seed=0)
+        run = dict(batch=4, prompt_len=prompt, tokens=8, keep_logits=True)
+        with MoeRouting() as r_e:
+            ein = serve(model, **run)
+        with MoeRouting() as r_c:
+            chk = serve(model, flags=chunked, feed=ein.generated, **run)
+        gaps = [logits_gap(chk.prefill_logits, ein.prefill_logits),
+                logits_gap(chk.decode_logits, ein.decode_logits)]
+        routed_differently = sum(
+            a != b for a, b in zip(r_e.calls, r_c.calls))
+        check(max(gaps) <= 1e-4,
+              f"{cfg.name}: chunked vs einsum logits differ by {gaps} of "
+              f"the largest (MoE blocks routed differently: "
+              f"{routed_differently})")
+        check(bool(torch.isfinite(chk.decode_logits).all()),
+              f"{cfg.name}: chunked logits not finite")
+        emit(phase="chunked_vs_einsum", arch=arch, model=cfg.name,
+             n_layers=cfg.n_layers, dtype=str(cfg.dtype).split(".")[-1],
+             batch=4, prompt_len=prompt, tokens=8,
+             prefill_rel_gap=gaps[0], decode_rel_gap=gaps[1], limit=1e-4,
+             moe_blocks_routed_differently=routed_differently,
+             prefill_s_einsum=ein.prefill_s, prefill_s_chunked=chk.prefill_s,
+             decode_s_einsum=ein.decode_s, decode_s_chunked=chk.decode_s)
+        del model, ein, chk
+        free_card()
+
+
+class Recorded:
+    """While active: the MoE routing (``MoeRouting``) and the largest
+    |hidden| after the model's last layer in its first call (the
+    prefill's). Both synchronise."""
+
+    def __init__(self, model):
+        self.model, self.routing, self.hidden_max = model, MoeRouting(), None
+
+    def __enter__(self):
+        def hook(mod, args, res):
+            if self.hidden_max is None:
+                self.hidden_max = float(res[0].float().abs().max())
+        self._hook = self.model.layers[-1].register_forward_hook(hook)
+        self.routing.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.routing.__exit__(*exc)
+        self._hook.remove()
+
+
+def moe_serve_run(model, name, batch, prompt_len, tokens, flags, repeat):
+    """One main-path serve run of qwen3-moe at full width and depth, the
+    counts set to 0 just before and read just after. ``repeat``: the
+    prefill runs again on the same prompt, recorded, and must give the
+    same bits; otherwise the run itself is recorded (its prefill's 48
+    reads of the routing add 48 synchronisations to seconds of work).
+    Returns the run's line."""
+    import contextlib
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import prefill
+    cfg = model.cfg
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorded(model)
+    kernels.reset_launch_counts()
+    with contextlib.nullcontext() if repeat else rec:
+        out = serve(model, batch=batch, prompt_len=prompt_len,
+                    tokens=tokens, keep_logits=True, flags=flags)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(counts.values()) == 0,
+          f"{name}: the MoE path launched kernels {counts}")
+    check(out.generated.shape == (batch, tokens + 1)
+          and bool(((out.generated >= 0)
+                    & (out.generated < cfg.vocab_size)).all())
+          and bool(torch.isfinite(out.prefill_logits).all())
+          and bool(torch.isfinite(out.decode_logits).all()),
+          f"{name}: logits not finite or tokens out of range")
+    if repeat:
+        with rec:
+            again, _, _ = prefill(model, {"tokens": out.prompt},
+                                  prompt_len + tokens + 1, flags)
+        gap = float((again.float() - out.prefill_logits.float()).abs().max())
+        check(torch.equal(again, out.prefill_logits),
+              f"{name}: the prefill run twice gives other logits (max gap "
+              f"{gap})")
+    calls = rec.routing.calls[:cfg.n_layers]            # the prefill's
+    kept = sum(c["kept"] for c in calls)
+    dropped = sum(c["dropped"] for c in calls)
+    return dict(
+        phase="main_path", run=name, arch=cfg.name, n_layers=cfg.n_layers,
+        dtype="bfloat16", launches=counts, batch=batch,
+        prompt_len=prompt_len, tokens=tokens,
+        attn_impl=flags.get("attn_impl", "einsum"),
+        capacity=calls[0]["capacity"],
+        prefill_s=out.prefill_s, decode_s=out.decode_s,
+        prefill_tokens_per_s=out.prefill_tokens_per_s,
+        decode_tokens_per_s=out.decode_tokens_per_s,
+        peak_memory_gb=peak / 1e9, prefill_repeat_bit_equal=repeat,
+        recorded="the prefill again" if repeat else "this run",
+        layer0_experts_routed=calls[0]["experts"],
+        dropped_share=dropped / (kept + dropped),
+        max_abs_hidden_last_layer=rec.hidden_max,
+        first_tokens=out.generated[0, :8].tolist())
+
+
+def moe_full():
+    """qwen3-moe-30b-a3b at full width and depth on the card (48 layers,
+    d_model 2048, 32 heads / 4 KV heads of 128, qk_norm, 128 experts
+    top-8 of d_ff 768, vocab 151,936; 30,532,122,624 bf16 parameters,
+    3,353,032,704 active a token): 4 x 512 prompt tokens and 32 decoded
+    on the einsum attention after a 2-token warm-up, then 1 x 32,768 on
+    the chunked attention and 8 decoded (the einsum route would need 137
+    GB of f32 scores a layer). No kernel is on this path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS, serve
+    from repro_torch.models import (active_param_count, make_model,
+                                    param_count)
+    cfg = get_config(QWEN_MOE)
+    free_card()
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, n_active = param_count(model), active_param_count(cfg, model)
+    check(n_params == QWEN_MOE_PARAMS and n_active == QWEN_MOE_ACTIVE
+          and model.embed.dtype == torch.bfloat16,
+          f"{QWEN_MOE} has {n_params} parameters, {n_active} active")
+    serve(model, batch=4, prompt_len=512, tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    line = moe_serve_run(model, f"{QWEN_MOE} serve", 4, 512, 32,
+                         SERVE_FLAGS, repeat=True)
+    emit(**line, params=n_params, active_params=n_active, init_s=init_s)
+    line = moe_serve_run(model, f"{QWEN_MOE} long prompt", 1, LONG_PROMPT,
+                         8, {**SERVE_FLAGS, "attn_impl": "chunked"},
+                         repeat=False)
+    emit(**line, params=n_params, active_params=n_active,
+         shape="prefill_32k, batch cut from 32 to 1")
+    del model
+    free_card()
 
 
 # ------------------------------------------------ the FL-LM train slice
@@ -3102,6 +3387,14 @@ def main() -> int:
         serve_small_vs_cpu(arch)
         for k, v in serve_full(arch).items():
             launches[k] = launches.get(k, 0) + v
+    # then the MoE models and the chunked attention, which launch no
+    # kernel: the scaled-down MoE models on the card against the CPU, the
+    # two attention routes against each other, then qwen3-moe-30b-a3b at
+    # full width and depth, at 4 x 512 and on a 32,768-token prompt
+    free_card()
+    moe_small_vs_cpu()
+    chunked_vs_einsum()
+    moe_full()
 
     # 10. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step

@@ -4,11 +4,18 @@ with temperature sampling (counterpart of ``examples/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --tokens 32
 
 The CLI serves the reference's ``scaled_down()`` sizes of ``--arch``
-(falcon-mamba-7b by default; recurrentgemma-2b and the dense models too)
-with random weights, the Mamba scan and the RG-LRU recurrence on their
-hand-written kernels (``mamba_kernel``, ``rglru_kernel``), on the card
-unless ``--device cpu``. :func:`serve` is the request loop for any model
-already built, at any width.
+(falcon-mamba-7b by default; recurrentgemma-2b, the dense models and the
+MoE models qwen3-moe-30b-a3b and kimi-k2-1t-a32b too) with random
+weights, the Mamba scan and the RG-LRU recurrence on their hand-written
+kernels (``mamba_kernel``, ``rglru_kernel``), on the card unless
+``--device cpu``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --device cpu
+
+:func:`serve` is the request loop for any model already built, at any
+width; its ``flags`` choose the attention route (``{"attn_impl":
+"chunked"}`` for prompts whose (S, T) scores would not fit).
 """
 from __future__ import annotations
 

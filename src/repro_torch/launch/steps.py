@@ -4,7 +4,7 @@ decode steps.
 
 Plain functions over a model already on its device: the reference's mesh,
 shardings and ``jit`` wait for the DeviceMesh item (ROADMAP Queue 1
-item 10). FL clients are the reference's data-axis slices: client m of N
+item 10 step 6). FL clients are the reference's data-axis slices: client m of N
 takes batch rows [m B/N, (m+1) B/N) and runs on the same card, one after
 another.
 """

@@ -79,6 +79,15 @@ class ModelConfig:
     def kind(self, layer_idx: int) -> str:
         return self.layer_pattern[layer_idx % len(self.layer_pattern)]
 
+    @property
+    def is_decoder_only(self) -> bool:
+        return self.encoder_layers == 0
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True iff decode cost is sub-quadratic (window / recurrent)."""
+        return all(k in ("local", "rglru", "mamba") for k in self.layer_pattern)
+
     def scaled_down(self) -> "ModelConfig":
         """Reduced variant for CPU smoke tests (<=2 groups, d<=256, <=4 experts)."""
         pat = self.layer_pattern

@@ -1,5 +1,5 @@
 """Model blocks (counterpart of ``repro.models.layers``): attention, the
-SwiGLU MLP, Mamba-1 and the RG-LRU.
+SwiGLU MLP, the top-k MoE block, Mamba-1 and the RG-LRU.
 
 Conventions as the reference's: x is (B, S, d); decode calls use S == 1
 plus a cache. An attention cache is a ring buffer ``{"k", "v": (B, L,
@@ -9,17 +9,19 @@ slot p % L and masks by the stored positions; a Mamba cache is
 ``{"conv": (B, K-1, d_inner)`` in the model dtype, ``"h": (B, d_inner,
 n)`` in f32``}``; an RG-LRU cache ``{"conv": (B, K-1, w)``, ``"h": (B,
 w)`` in f32``}``. Caches are not updated in place: each call returns new
-tensors, as the reference's functional updates do. Attention is plain
-torch products op for op as the reference's ``_attend_einsum`` (scores
-in f32, the NEG_INF mask, softmax, probabilities back in the model
-dtype): it is jnp code there, not a Pallas kernel. ``flags`` holds
-runtime options:
+tensors, as the reference's functional updates do. Attention and the MoE
+block are plain torch products op for op as the reference's jnp code
+(no Pallas kernel there): ``_attend_einsum`` materialises the f32
+scores, ``_attend_chunked`` runs the online softmax over key chunks of
+512, its running output in the model dtype. ``flags`` holds runtime
+options:
 
   * ``cache_len`` — set by ``api.prefill``: the length of the caches a
     prefill writes;
-  * ``attn_impl`` — ``"einsum"`` (the default); ``"chunked"`` (the
-    reference's online-softmax ``_attend_chunked``) is not ported yet and
-    raises;
+  * ``attn_impl`` — ``"einsum"`` (the default) or ``"chunked"``;
+  * ``moe_impl`` — ``"auto"`` (the default); ``"ep"`` without a mesh
+    falls through to it, as the reference's does; with a mesh or
+    ``_in_manual`` it raises (ROADMAP Queue 1 item 10 step 6);
   * ``mamba_kernel`` — the Mamba scan goes to ``kernels.ops.selective_scan``
     (the hand-written CUDA kernel on the card); with ``use_kernel=False``
     there it runs the kernel's plain version, which gives the same bits;
@@ -33,8 +35,9 @@ runtime options:
   * ``scan_chunk`` — the chunk of the plain chunked routes (default 128
     for Mamba, 256 for the RG-LRU, the reference's).
 
-MoE blocks are not ported yet (ROADMAP Queue 1 item 10); their entry
-points raise ``NotImplementedError``.
+Cross-attention and the bidirectional ``"encoder"`` kind come with the
+front ends (ROADMAP Queue 1 item 10 step 4) and raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -46,23 +49,14 @@ from ..kernels import ops as kops
 from .common import (ModelConfig, ParamInit, ParamModule, gelu, rms_norm,
                      rope, silu, softplus)
 
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10: the model zoo; "
-              "the port runs dense attention and MLP, Mamba-1 and RG-LRU "
-              "layers)")
-CHUNKED_ATTENTION = ("the chunked (online-softmax) attention is not ported "
-                     "yet (ROADMAP Queue 1 item 10, step 1: "
-                     "_attend_chunked); use attn_impl='einsum'")
+NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10 step 4: the "
+              "audio and VLM front ends; the port runs dense and MoE "
+              "attention layers, Mamba-1 and RG-LRU layers)")
+EP_NOT_PORTED = ("the expert-parallel MoE route (moe_impl='ep' under a mesh "
+                 "or a manual shard) is not ported yet (ROADMAP Queue 1 "
+                 "item 10 step 6: multi-card); without a mesh 'ep' runs "
+                 "the auto route")
 NEG_INF = -1e30
-
-
-def _not_ported(block: str):
-    def fn(*args, **kw):
-        raise NotImplementedError(f"{block} {NOT_PORTED}")
-    fn.__name__ = block
-    return fn
-
-
-init_moe = moe_apply = _not_ported("the MoE block")
 
 
 # =============================================================== attention
@@ -101,6 +95,55 @@ def _attend_einsum(q, k, v, mask):
     return out.reshape(B, S, H, hd)
 
 
+def _attend_chunked(q, k, v, mask, chunk: int = 512):
+    """Flash-style online softmax over key chunks (the reference's
+    ``_attend_chunked``): one (S, chunk) block of scores at a time, never
+    (S, T). Op for op as the reference: q divided by sqrt(hd) in its dtype
+    before the product; k, v padded with zeros and the mask with False to
+    whole chunks of ``min(chunk, T)``; the running max from NEG_INF and
+    the running sum in f32; the running output in q's dtype, rescaled by
+    alpha cast to it; the output divided by max(l, 1e-30). A chunk that
+    is fully masked before a row's first unmasked key adds exp(0) = 1 a
+    key to l and o, as the reference's does; the first unmasked key's
+    max then rescales that to 0. Same shapes as ``_attend_einsum``."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    chunk = min(chunk, T)
+    pad = -T % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+    scale = torch.sqrt(torch.tensor(float(hd), device=q.device)).to(q.dtype)
+    # (B, KV, G*S, hd): query head h = kv * G + g reads KV head kv
+    qg = (q.reshape(B, S, KV, G, hd) / scale).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(B, KV, G * S, hd)
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, KV, G, S, hd), dtype=q.dtype, device=q.device)
+    for t0 in range(0, T + pad, chunk):
+        k_i = k[:, t0:t0 + chunk].permute(0, 2, 3, 1)         # (B,KV,hd,c)
+        v_i = v[:, t0:t0 + chunk].permute(0, 2, 1, 3)         # (B,KV,c,hd)
+        keep = mask[:, 0, None, None, :, t0:t0 + chunk]       # (B,1,1,S,c)
+        s = torch.matmul(qg, k_i).view(B, KV, G, S, chunk).float()
+        s = s.masked_fill_(~keep, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        if s.requires_grad:
+            pexp = torch.exp(s - m_new[..., None])
+        else:                       # serving: the scores' memory is reused
+            pexp = s.sub_(m_new[..., None]).exp_()
+        l = l * alpha + torch.sum(pexp, dim=-1)
+        o_i = torch.matmul(pexp.to(q.dtype).view(B, KV, G * S, chunk), v_i)
+        del s, pexp          # before the next chunk's scores are made
+        o = o * alpha[..., None].to(q.dtype) + o_i.view(B, KV, G, S, hd)
+        m = m_new
+    out = o / torch.clamp_min(l, 1e-30)[..., None].to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
 def _causal_mask(positions_q: torch.Tensor, positions_k: torch.Tensor,
                  window: Optional[int]) -> torch.Tensor:
     """(B, 1, S, T) mask: causal, optionally sliding-window, k-pos >= 0."""
@@ -115,19 +158,25 @@ def _causal_mask(positions_q: torch.Tensor, positions_k: torch.Tensor,
 def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor, *, kind: str = "global",
                     cache: Optional[dict] = None, mode: str = "train",
-                    flags: Optional[dict] = None):
+                    flags: Optional[dict] = None,
+                    cross_kv: Optional[torch.Tensor] = None):
     """Causal self-attention, sliding-window for ``kind="local"``
     (``repro.models.layers.attention_apply``). ``mode="train"`` and
     ``"prefill"`` attend over the whole sequence; a prefill also returns
     the cache it fills (``flags["cache_len"]`` long, default S). ``"decode"``
     (S == 1) writes the token's k, v and position into its ring slot of
-    ``cache`` and attends over the cache. Returns (y, new_cache or None).
+    ``cache`` and attends over the cache. ``flags["attn_impl"] ==
+    "chunked"`` attends by ``_attend_chunked`` in every mode, anything
+    else by ``_attend_einsum``, as the reference routes. Returns (y,
+    new_cache or None).
     """
     flags = flags or {}
-    if flags.get("attn_impl", "einsum") != "einsum":
-        raise NotImplementedError(CHUNKED_ATTENTION)
+    if cross_kv is not None:
+        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
     if kind not in ("global", "local"):
         raise NotImplementedError(f"{kind} attention {NOT_PORTED}")
+    attend = (_attend_chunked if flags.get("attn_impl", "einsum") == "chunked"
+              else _attend_einsum)
     B, S, _ = x.shape
     window = cfg.window_size if kind == "local" else None
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -147,12 +196,12 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
         cv = cache["v"].index_put((bidx, slot), v[:, 0])
         cpos = cache["pos"].index_put((bidx, slot),
                                       positions[:, 0].to(torch.int32))
-        out = _attend_einsum(q, ck, cv, _causal_mask(positions, cpos, window))
+        out = attend(q, ck, cv, _causal_mask(positions, cpos, window))
         y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
         return y, {"k": ck, "v": cv, "pos": cpos}
 
     mask = _causal_mask(positions, positions, window)
-    out = _attend_einsum(q, k, v, mask)
+    out = attend(q, k, v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if mode != "prefill":
         return y, None
@@ -202,6 +251,126 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
     h = h * torch.einsum("bsd,df->bsf", x, p["w_up"])
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ==================================================================== MoE
+
+def init_moe(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
+    """The router (d, E) at scale 0.02 and the experts' SwiGLU weights
+    (E, d, f), (E, d, f), (E, f, d) at ParamInit's default 1/sqrt(E), as
+    the reference's ``ParamBuilder`` scales a leaf by its first axis."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p.param(init, "router", (d, E), scale=0.02)
+    p.param(init, "w_gate", (E, d, f))
+    p.param(init, "w_up", (E, d, f))
+    p.param(init, "w_down", (E, f, d))
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest, descending,
+    the lower index first among equal values. ``torch.topk`` promises no
+    order among ties, so a stable descending sort picks them."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router_probs(xf: torch.Tensor, router) -> torch.Tensor:
+    """Router logits in f32 and their softmax, written as ``jax.nn.softmax``
+    computes it: exp(x - max) over its sum. (T, E)."""
+    logits = (xf @ router).float()
+    z = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    return z / torch.sum(z, dim=-1, keepdim=True)
+
+
+def _moe_route(cfg: ModelConfig, probs: torch.Tensor, xf: torch.Tensor,
+               C: int):
+    """``_moe_dispatch`` from the router's probabilities on: the top-k,
+    the sort, the capacity and the buffer."""
+    T, d = xf.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    gate_vals, eids = _top_k(probs, k)                          # (T, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    flat_e = eids.reshape(-1)                                   # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    tok = order // k
+    starts = torch.searchsorted(se, torch.arange(E, device=xf.device))
+    pos = torch.arange(T * k, device=xf.device) - starts[se]
+    valid = pos < C
+    dest = se * C + torch.where(valid, pos, 0)
+    # a dropped assignment adds +0.0 to its expert's slot 0, as the
+    # reference's does: each valid slot is written once, onto +0.0
+    src = torch.where(valid[:, None], xf[tok], xf.new_zeros(()))
+    buf = xf.new_zeros(E * C, d).index_add_(0, dest, src)
+    dispatch_frac = torch.mean(
+        torch.nn.functional.one_hot(eids[:, 0], E).float(), dim=0)
+    prob_frac = torch.mean(probs, dim=0)
+    aux = E * torch.sum(dispatch_frac * prob_frac)
+    combine = (tok, dest, valid, gate_vals.reshape(-1)[order])
+    return buf.view(E, C, d), combine, aux
+
+
+def _moe_dispatch(cfg: ModelConfig, router, xf: torch.Tensor, C: int):
+    """Sort-based routing (the reference's ``_moe_dispatch``). Returns
+    (buf (E, C, d), combine, aux): each (token, expert) assignment, sorted
+    stably by expert id, takes slot ``pos`` of its expert when pos < C
+    and is dropped otherwise, so an expert keeps its lowest token indices;
+    combine = (tok, dest, valid, gates) in that sorted order; aux is the
+    switch load-balance term E * sum(top-1 share * mean prob), in f32."""
+    return _moe_route(cfg, _router_probs(xf, router), xf, C)
+
+
+def _moe_combine(combine, out_buf: torch.Tensor, T: int, dtype):
+    """Each token's k expert outputs times (valid * gate) cast to
+    ``dtype``, added one after another onto zeros in ``dtype``, in the
+    sorted order (ascending expert id): the order in which the reference's
+    ``.at[tok].add`` applies them. No atomics, so the sum is the same on
+    every run and device."""
+    tok, dest, valid, gates = combine
+    d = out_buf.shape[-1]
+    flat = out_buf.reshape(-1, d)
+    w = (valid * gates).to(dtype)
+    # (T, k): the sorted positions of each token's assignments, ascending
+    slots = torch.argsort(tok, stable=True).view(T, -1)
+    y = torch.zeros((T, d), dtype=dtype, device=out_buf.device)
+    for j in range(slots.shape[1]):
+        i = slots[:, j]
+        y = y + flat[dest[i]] * w[i, None]
+    return y
+
+
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    if T * k <= 256:
+        # dropless small-batch path (decode): full capacity, so routing
+        # is exactly that of the large-batch forward pass
+        return T * k
+    return max(1, int(T * k * cfg.moe_capacity_factor / E))
+
+
+def _expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
+    """SwiGLU per expert over its (C, d) slots: (E, C, d) -> (E, C, d)."""
+    h = silu(torch.bmm(buf, p["w_gate"]))
+    h = h * torch.bmm(buf, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
+              flags: Optional[dict] = None):
+    """Top-k MoE with sort-based dispatch and a fixed capacity per expert
+    (``repro.models.layers.moe_apply``, its ``"auto"`` route). Every
+    expert runs over its whole (C, d) buffer, filled or not. Returns (y
+    (B, S, d), aux)."""
+    flags = flags or {}
+    if flags.get("moe_impl", "auto") == "ep" and (
+            flags.get("_in_manual") or flags.get("mesh") is not None):
+        raise NotImplementedError(EP_NOT_PORTED)
+    B, S, d = x.shape
+    T = B * S
+    C = _capacity(cfg, T)
+    buf, combine, aux = _moe_dispatch(cfg, p["router"], x.reshape(T, d), C)
+    y = _moe_combine(combine, _expert_ffn(p, buf), T, x.dtype)
+    return y.view(B, S, d), aux
 
 
 # ================================================= chunked linear scans

@@ -7,17 +7,18 @@ of the port is the reference's group ``i // len(pattern)``, block
 ``i % len(pattern)`` (then the tail). Parameter names follow the
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` and
 ``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>``, ``layers.<i>.attn.<leaf>``
-or ``layers.<i>.rec.<leaf>``, ``layers.<i>.ln2``, ``layers.<i>.mlp.<leaf>``.
+or ``layers.<i>.rec.<leaf>``, ``layers.<i>.ln2``, then ``layers.<i>.mlp.<leaf>``
+or, in MoE models, ``layers.<i>.moe.<leaf>``.
 Caches are a list with one dict per layer, keyed as the reference's:
 ``{"attn": ...}``, ``{"mamba": ...}`` or ``{"rec": ...}``.
 ``repro_torch.interop`` maps these names to the reference's stacked leaves
 and back.
 
 Mamba-1 layers (falcon-mamba), dense layers (global and local attention
-with the SwiGLU MLP: the llama family, gemma3's pattern) and RG-LRU
-layers (recurrentgemma's pattern) serve and train. MoE layers,
-encoder-decoders and VLMs raise ``NotImplementedError`` naming their
-ROADMAP item.
+with the SwiGLU MLP: the llama family, gemma3's pattern), MoE layers
+(attention with the top-k expert block: qwen3-moe, kimi-k2) and RG-LRU
+layers (recurrentgemma's pattern) serve and train. Encoder-decoders and
+VLMs raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from .common import ModelConfig, ParamInit, ParamModule, rms_norm
 
 class Layer(ParamModule):
     """One layer (``_init_layer``): ``ln1`` and the block of its kind, then
-    for attention layers ``ln2`` and the MLP (a Mamba layer has none)."""
+    for attention and RG-LRU layers ``ln2`` and either the MoE block (MoE
+    models) or the MLP, never both (a Mamba layer has neither)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, init: ParamInit):
         super().__init__()
@@ -50,15 +52,18 @@ class Layer(ParamModule):
         else:
             raise ValueError(kind)
         if kind != "mamba" and cfg.d_ff > 0:
-            if cfg.n_experts > 0:
-                L.init_moe(init, self, cfg)
             self.param(init, "ln2", (cfg.d_model,), init="ones")
-            self.mlp = ParamModule()
-            L.init_mlp(init, self.mlp, cfg)
+            if cfg.n_experts > 0:
+                self.moe = ParamModule()
+                L.init_moe(init, self.moe, cfg)
+            else:
+                self.mlp = ParamModule()
+                L.init_mlp(init, self.mlp, cfg)
 
     def forward(self, cfg: ModelConfig, x, positions, *, cache=None,
                 mode="train", flags=None):
-        """``_layer_apply``: (x, new_cache)."""
+        """``_layer_apply``: (x, new_cache, aux); aux is the MoE block's
+        load-balance term, None for a layer without one."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if self.kind == "mamba":
             y, nc = L.mamba_apply(
@@ -79,10 +84,15 @@ class Layer(ParamModule):
                 flags=flags)
             new_cache = None if nc is None else {"attn": nc}
         x = x + y
+        aux = None
         if hasattr(self, "ln2"):
-            x = x + L.mlp_apply(cfg, self.mlp,
-                                rms_norm(x, self.ln2, cfg.norm_eps))
-        return x, new_cache
+            h = rms_norm(x, self.ln2, cfg.norm_eps)
+            if hasattr(self, "moe"):
+                y, aux = L.moe_apply(cfg, self.moe, h, flags=flags)
+            else:
+                y = L.mlp_apply(cfg, self.mlp, h)
+            x = x + y
+        return x, new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -139,16 +149,20 @@ class Transformer(nn.Module):
                 flags=None):
         """Backbone over embeddings x (B, S, d) at ``positions`` (B, S)
         (attention layers; Mamba and RG-LRU layers read none). Returns
-        (hidden, caches)."""
+        (hidden, caches, aux): aux sums the MoE layers' load-balance terms
+        in f32, layer by layer (0 without MoE layers)."""
         new_caches = None if caches is None else []
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, nc = layer(self.cfg, x, positions,
-                          cache=None if caches is None else caches[i],
-                          mode=mode, flags=flags)
+            x, nc, aux = layer(self.cfg, x, positions,
+                               cache=None if caches is None else caches[i],
+                               mode=mode, flags=flags)
+            if aux is not None:
+                aux_total = aux_total + aux
             if new_caches is not None:
                 new_caches.append(nc if nc is not None else caches[i])
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x, new_caches
+        return x, new_caches, aux_total
 
     def logits(self, hidden):
         return hidden @ self.lm_head

@@ -30,7 +30,7 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.api.results", "repro.api.spec", "repro.api.schemes",
                "repro.api.scenarios", "repro.api.plan",
                "repro.api.materialize", "repro.api.execute",
-               "repro.api.cli")
+               "repro.api.cli", "repro.launch.shapes")
 
 
 @pytest.fixture(scope="module")

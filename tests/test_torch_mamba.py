@@ -108,21 +108,30 @@ def test_full_model_parameter_count(ref):
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
 def test_other_kinds_raise_not_implemented(arch):
-    """What the port does not run raises NotImplementedError naming its
-    ROADMAP item: MoE and the front ends when the model is built; the
-    dense and RG-LRU models (which build, train and serve) when served
-    with the chunked attention, which is not ported."""
+    """Every other arch at its scaled-down sizes: the audio and VLM front
+    ends (whisper-tiny, internvl2-2b) raise NotImplementedError naming
+    their ROADMAP item when built; the dense, MoE and RG-LRU models build,
+    and their prefill of 2 x 80 tokens (over the 64-token window) on the
+    chunked attention equals the einsum route's within the tolerance."""
     cfg = get_config(arch).scaled_down()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        model = make_model(cfg, device="cpu")
-        prefill(model, make_batch(cfg, 1, 4, torch.Generator()), 8,
-                {"attn_impl": "chunked"})
+    if cfg.arch_type in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10 step 4"):
+            make_model(cfg, device="cpu")
+        return
+    model = make_model(cfg, device="cpu")
+    batch = make_batch(cfg, 2, 80, torch.Generator().manual_seed(1))
+    want, _, _ = prefill(model, batch, 84)
+    got, _, _ = prefill(model, batch, 84, {"attn_impl": "chunked"})
+    _close(got, want.numpy())
 
 
 def _unported_call(block):
-    """(a call of ``block`` on what the port does not run, the message it
-    raises): MoE at all; attention's chunked implementation; the RG-LRU's
-    kernel route under autograd (the kernel has no backward)."""
+    """(a call of what the port does not run, the message it raises):
+    cross-attention and the bidirectional encoder kind (the front ends,
+    item 10 step 4); the MoE block's expert-parallel route inside a
+    manual shard (multi-card, item 10 step 6); the RG-LRU's kernel route
+    under autograd (the kernel has no backward)."""
     if block == "rglru_apply":
         model = make_model(get_config("recurrentgemma-2b").scaled_down(),
                            device="cpu")
@@ -130,14 +139,26 @@ def _unported_call(block):
         return (lambda: L.rglru_apply(model.cfg, model.layers[0].rec, x,
                                       flags={"rglru_kernel": True}),
                 "no backward")
-    kw = {"attention_apply": dict(positions=None,
-                                  flags={"attn_impl": "chunked"})}
-    return (lambda: getattr(L, block)(None, None, None, **kw.get(block, {})),
-            "ROADMAP")
+    if block == "moe_apply_ep":
+        model = make_model(get_config("qwen3-moe-30b-a3b").scaled_down(),
+                           device="cpu")
+        x = torch.zeros(1, 4, model.cfg.d_model)
+        return (lambda: L.moe_apply(model.cfg, model.layers[0].moe, x,
+                                    flags={"moe_impl": "ep",
+                                           "_in_manual": True}),
+                "ROADMAP Queue 1 item 10 step 6")
+    model = make_model(get_config("tinyllama-1.1b").scaled_down(),
+                       device="cpu")
+    x = torch.zeros(1, 4, model.cfg.d_model)
+    kw = {"cross_attention": dict(cross_kv=x),
+          "encoder_attention": dict(kind="encoder")}[block]
+    return (lambda: L.attention_apply(model.cfg, model.layers[0].attn, x,
+                                      torch.arange(4)[None], **kw),
+            "ROADMAP Queue 1 item 10 step 4")
 
 
-@pytest.mark.parametrize("block", ["attention_apply", "init_moe",
-                                   "moe_apply", "rglru_apply"])
+@pytest.mark.parametrize("block", ["cross_attention", "encoder_attention",
+                                   "moe_apply_ep", "rglru_apply"])
 def test_unported_blocks_raise(block):
     call, match = _unported_call(block)
     with pytest.raises(NotImplementedError, match=match):

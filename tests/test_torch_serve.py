@@ -285,14 +285,47 @@ def test_attention_prefill_and_decode_match_reference(ref, rg, kind, case):
     assert int(c_p["pos"][0, slot]) == S + 5
 
 
-def test_chunked_attention_raises(rg):
-    _, _, model = rg
+def test_chunked_attention_raises(ref, rg):
+    """recurrentgemma's local attention block (layer 2) on the chunked
+    route: a prefill of 2 x 80 tokens into a 40-slot ring and 3 decode
+    steps, against the reference's chunked route; the bidirectional
+    encoder kind still raises, naming its ROADMAP item (the front ends,
+    item 10 step 4)."""
+    _, params, model = rg
+    cfg = model.cfg
+    rcfg = ref.configs.get_config(RG).scaled_down()
+    jnp = ref.jax.numpy
+    p_r = ref.jax.tree.map(lambda a: jnp.asarray(a[0]),
+                           params["groups"]["b2"]["attn"])
+    p_t = model.layers[2].attn
+    rng = _rng(7)
+    B, S = 2, 80
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    fl = {"cache_len": 40, "attn_impl": "chunked"}
+    y_r, c_r = ref.layers.attention_apply(
+        rcfg, p_r, jnp.asarray(x), jnp.asarray(pos), kind="local",
+        mode="prefill", flags=fl)
+    with torch.no_grad():
+        y_p, c_p = L.attention_apply(
+            cfg, p_t, torch.from_numpy(x), torch.from_numpy(pos.copy()),
+            kind="local", mode="prefill", flags=fl)
+        _close(y_p, y_r)
+        for i in range(3):
+            xi = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+            pi = np.full((B, 1), S + i, np.int32)
+            y_r, c_r = ref.layers.attention_apply(
+                rcfg, p_r, jnp.asarray(xi), jnp.asarray(pi), kind="local",
+                cache=c_r, mode="decode", flags=fl)
+            y_p, c_p = L.attention_apply(
+                cfg, p_t, torch.from_numpy(xi), torch.from_numpy(pi).long(),
+                kind="local", cache=c_p, mode="decode", flags=fl)
+            _close(y_p, y_r)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10, step 1"):
-        L.attention_apply(model.cfg, model.layers[2].attn,
-                          torch.zeros(1, 3, model.cfg.d_model),
+                       match="ROADMAP Queue 1 item 10 step 4"):
+        L.attention_apply(cfg, p_t, torch.zeros(1, 3, cfg.d_model),
                           torch.zeros(1, 3, dtype=torch.int32),
-                          flags={"attn_impl": "chunked"})
+                          kind="encoder", flags={"attn_impl": "chunked"})
 
 
 # ------------------------------------------------------------ models

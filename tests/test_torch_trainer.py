@@ -187,6 +187,7 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.core.collectives, repro_torch.launch.train\n"
             "import repro_torch.data, repro_torch.api, repro_torch.api.cli\n"
             "from repro_torch.fl import SyntheticHighDimTask\n"
+            "import repro_torch.launch.serve, repro_torch.launch.shapes\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
