@@ -194,6 +194,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      experts layer 0 routed to, the share of assignments capacity
      dropped and the largest hidden magnitude after the last layer (at
      4 x 512 recorded in the repeated prefill, at 32,768 in the run);
+   then the audio and VLM front ends, which launch no kernel either
+   (their reference is jnp code):
+     the main paths "whisper-tiny serve" (4 encoder and 4 decoder
+     layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51,865;
+     61,074,432 bf16 parameters, random; 4 requests of frames (1500,
+     384) and 416 prompt tokens, 32 decoded, which reach position 447,
+     the decoder's 448 limit) and "internvl2-2b serve" (24 layers,
+     d_model 2048, 16 heads / 8 KV heads of 128, d_ff 8192, vocab
+     92,553; 1,889,146,880 bf16 parameters; 4 x (256 patches + 256 text
+     tokens), 32 decoded) after a 2-token warm-up: no kernel launch,
+     finite logits, tokens in range, the decode after the prefix, the
+     prefill run again giving the same bits; tokens/s and peak memory;
+     "whisper-tiny vs cpu": the same model at full width in f32 on 2 x
+     (1500 frames, 64 tokens) and 8 fed decode tokens, within 1e-4 of
+     the CPU run's largest logit; "front_ends_small_vs_cpu":
+     internvl2-2b at its ``scaled_down()`` sizes, 4 x (8 patches + 56
+     tokens) and 8 decoded, the same;
 10. FL-LM training (``repro_torch.launch.train``, the wireless collective
    ``core.collectives.wireless_psum``), tinyllama-1.1b, random weights:
      at 2 layers of the full width (bf16), the collective's kernel route
@@ -209,6 +226,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
      every launch on the card and the device time a step;
+   then whisper-tiny (the audio front end: 27 reference leaves, the
+   encoder's and the cross blocks' among them), random weights:
+     at full width and depth (bf16), the collective's kernel route
+     against its plain route on the same per-client gradients of 8 x 128
+     tokens with their frames, bit-equal in the three modes;
+     the main path "whisper-tiny train ideal|ota|digital" through
+     ``make_train_step`` (the text-only launcher refuses the front ends,
+     as the reference's does), 3 steps of 8 x 128 decoder tokens with
+     frames (8, 1500, 384) over 4 clients, the rounds made as the
+     launcher makes them: exactly 27 ``ota_combine_keyed`` a step on OTA
+     and 108 ``dithered_quantize`` on digital, nothing else; finite
+     losses and parameters; steps/s, tokens/s and peak memory;
+     "optim_vs_cpu": 3 Adam steps (weight decay 0.01) on its bf16
+     parameters from one loss's gradients, on the card against the CPU,
+     bit-equal, then the projection onto the ball of radius 10: the
+     scale within 16 ulps (f32 reductions in other orders), parameters
+     within 1 bf16 ulp;
 11. the kernel table, nvidia-smi's line, and the result line.
 """
 import dataclasses
@@ -2629,6 +2663,172 @@ def moe_full():
     free_card()
 
 
+# ------------------------------------------------ the audio and VLM front ends
+
+WHISPER = "whisper-tiny"
+INTERNVL = "internvl2-2b"
+# each front end's main-path serve run: parameters at full size, prompt
+# tokens (whisper's 416 + 32 decoded reach position 447, the decoder's
+# 448 limit; internvl2's 512 are 256 patches + 256 text tokens) and the
+# positions a request's prefill fills
+FRONT_ENDS = {
+    WHISPER: dict(params=61_074_432, prompt_len=416, prefix=416),
+    INTERNVL: dict(params=1_889_146_880, prompt_len=512, prefix=512),
+}
+FRONT_END_REL = 1e-4          # card against the CPU, of the largest logit
+
+
+def logits_within(name, card, cpu, rel=FRONT_END_REL) -> float:
+    """Check each (card, cpu) pair of logits within ``rel`` of the CPU's
+    largest magnitude plus ``rel`` relative, as the serve tests hold the
+    CPU to the reference; returns the largest gap over the largest."""
+    worst = 0.0
+    for got, want in ((card.prefill_logits, cpu.prefill_logits),
+                      (card.decode_logits, cpu.decode_logits)):
+        got, want = got.cpu().double(), want.double()
+        scale = float(want.abs().max())
+        gap = (got - want).abs()
+        worst = max(worst, float(gap.max()) / scale)
+        check(bool((gap <= rel * want.abs() + rel * scale).all()),
+              f"{name}: card vs CPU logits differ by {float(gap.max())} "
+              f"(largest logit {scale})")
+    return worst
+
+
+def front_end_full(arch):
+    """The front end's main path at full width and depth (bf16, random
+    weights from seed 0): 4 requests of ``FRONT_ENDS[arch]``'s prompt and
+    32 decoded tokens after a 2-token warm-up, the counts set to 0 just
+    before and read just after: no kernel launch, finite logits, tokens
+    in range, the decode positions after the prefix, and the prefill run
+    again on the same inputs giving the same bits. Returns the counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS, serve
+    from repro_torch.models import make_batch, make_model, param_count, prefill
+    cell = FRONT_ENDS[arch]
+    cfg = get_config(arch)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == cell["params"] and model.embed.dtype == torch.bfloat16,
+          f"{arch} has {n_params} parameters")
+    run = dict(batch=4, prompt_len=cell["prompt_len"], flags=SERVE_FLAGS)
+    serve(model, tokens=2, **run)                          # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = serve(model, tokens=32, keep_logits=True, **run)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(counts.values()) == 0,
+          f"{arch} serve launched kernels {counts}")
+    check(out.prefix == cell["prefix"] and out.generated.shape == (4, 33)
+          and bool(((out.generated >= 0)
+                    & (out.generated < cfg.vocab_size)).all())
+          and bool(torch.isfinite(out.prefill_logits).all())
+          and bool(torch.isfinite(out.decode_logits).all()),
+          f"{arch} serve: logits not finite, tokens out of range or "
+          f"prefix {out.prefix}")
+    # the same inputs serve drew (a CPU generator seeded 1), again
+    inputs = {k: v.cuda() for k, v in make_batch(
+        cfg, 4, cell["prompt_len"], torch.Generator().manual_seed(1)).items()}
+    check(torch.equal(inputs["tokens"], out.prompt),
+          f"{arch}: the prompt drawn again differs")
+    again, _, memory = prefill(model, inputs,
+                               cell["prompt_len"] + cfg.vision_prefix + 33,
+                               SERVE_FLAGS)
+    gap = float((again.float() - out.prefill_logits.float()).abs().max())
+    check(torch.equal(again, out.prefill_logits),
+          f"{arch}: the prefill run twice gives other logits (max gap "
+          f"{gap})")
+    emit(phase="main_path", run=f"{arch} serve", arch=arch,
+         n_layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+         params=n_params, dtype="bfloat16", launches=counts, batch=4,
+         prompt_len=cell["prompt_len"], text_tokens=out.prompt.shape[1],
+         vision_prefix=cfg.vision_prefix,
+         encoder_frames=None if memory is None else memory.shape[1],
+         tokens=32, last_position=out.prefix + 31, init_s=init_s,
+         prefill_s=out.prefill_s, decode_s=out.decode_s,
+         prefill_tokens_per_s=out.prefill_tokens_per_s,
+         decode_tokens_per_s=out.decode_tokens_per_s,
+         peak_memory_gb=peak / 1e9, prefill_repeat_bit_equal=True,
+         first_tokens=out.generated[0, :8].tolist())
+    del model, out, again, memory
+    free_card()
+    return counts
+
+
+def whisper_vs_cpu():
+    """whisper-tiny at full width and depth in f32 served on the card
+    against the port's CPU run with the same weights, frames, prompts and
+    decode tokens: 2 x (1500 frames, 64 tokens) and 8 fed decode tokens,
+    logits within 1e-4 of the CPU's largest (the tests tie the CPU to the
+    reference at the scaled-down sizes)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_config(WHISPER), dtype=torch.float32)
+    cpu_m = make_model(cfg, seed=0, device="cpu")
+    card_m = make_model(cfg, seed=None)
+    card_m.load_state_dict(cpu_m.state_dict())
+    run = dict(batch=2, prompt_len=64, tokens=8, keep_logits=True)
+    t0 = time.perf_counter()
+    cpu = serve(cpu_m, **run)
+    cpu_s = time.perf_counter() - t0
+    card = serve(card_m, feed=cpu.generated, **run)
+    worst = logits_within("whisper-tiny f32", card, cpu)
+    emit(phase="whisper-tiny vs cpu", arch=WHISPER, dtype="float32",
+         n_layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+         batch=2, frames=cfg.encoder_positions, prompt_len=64, tokens=8,
+         max_rel_diff=worst, limit=FRONT_END_REL, cpu_s=cpu_s,
+         card_prefill_s=card.prefill_s, card_decode_s=card.decode_s)
+    del card_m, card
+    free_card()
+
+
+def front_ends_small_vs_cpu():
+    """internvl2-2b at its ``scaled_down()`` sizes (f32, 8 patches) served
+    on the card against the port's CPU run: 4 x 64 prompt positions (8
+    patches + 56 text tokens) and 8 fed decode tokens, logits within
+    1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    small = get_config(INTERNVL).scaled_down()
+    cpu_m = make_model(small, seed=0, device="cpu")
+    card_m = make_model(small, seed=None)
+    card_m.load_state_dict(cpu_m.state_dict())
+    run = dict(batch=4, prompt_len=64, tokens=8, keep_logits=True)
+    cpu = serve(cpu_m, **run)
+    card = serve(card_m, feed=cpu.generated, **run)
+    check(sum(card.prefill_launches.values())
+          + sum(card.decode_launches.values()) == 0,
+          f"scaled-down {INTERNVL} serve launched kernels")
+    worst = logits_within(f"scaled-down {INTERNVL}", card, cpu)
+    emit(phase="front_ends_small_vs_cpu", arch=small.name,
+         max_rel_diff=worst, limit=FRONT_END_REL, batch=4, prompt_len=64,
+         vision_prefix=small.vision_prefix, tokens=8)
+    del card_m, card
+    free_card()
+
+
+def front_ends_serve():
+    """Phase 9's front-end lines; returns the main-path serve counts."""
+    counts = {}
+    for arch in (WHISPER, INTERNVL):
+        for k, v in front_end_full(arch).items():
+            counts[k] = counts.get(k, 0) + v
+    whisper_vs_cpu()
+    front_ends_small_vs_cpu()
+    return counts
+
+
 # ------------------------------------------------ the FL-LM train slice
 
 TINYLLAMA = "tinyllama-1.1b"
@@ -2851,42 +3051,44 @@ def keyed_beyond_2_31():
     return err
 
 
-def client_grads(model, tokens, n_clients):
+def client_grads(model, batch, n_clients):
     """Each client's gradient leaves (the reference's stacked leaves) for
-    one batch, computed once."""
+    its rows of every batch leaf, computed once."""
     from repro_torch import interop
     from repro_torch.models import loss_fn
     leaves = interop.reference_leaves(model)
-    rows = tokens.shape[0] // n_clients
+    rows = batch["tokens"].shape[0] // n_clients
     out = []
     for m in range(n_clients):
         model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model, {"tokens": tokens[m * rows:(m + 1) * rows]})
+        loss, _ = loss_fn(model, {k: v[m * rows:(m + 1) * rows]
+                                  for k, v in batch.items()})
         loss.backward()
         out.append([leaf.value(lambda p: p.grad) for leaf in leaves])
     model.zero_grad(set_to_none=True)
     return out
 
 
-def psum_kernel_vs_plain():
-    """wireless_psum at tinyllama's full width cut to 2 layers (bf16): the
-    kernel route and the plain route on the same per-client gradients
-    (the embedding's backward accumulates in no fixed order on the card,
-    so the gradients are computed once), bit-equal in every mode; one
-    epilogue launch a leaf (OTA), one quantizer launch a client and leaf
-    (digital)."""
+def psum_kernel_vs_plain(arch=TINYLLAMA, n_layers=2):
+    """wireless_psum at the arch's full width (bf16; tinyllama cut to 2
+    layers, whisper-tiny at full depth with its frames): the kernel route
+    and the plain route on the same per-client gradients of an 8 x 128
+    batch (the embedding's backward accumulates in no fixed order on the
+    card, so the gradients are computed once), bit-equal in every mode;
+    one epilogue launch a leaf (OTA), one quantizer launch a client and
+    leaf (digital)."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import rngstream
     from repro_torch.core.collectives import WirelessRound, wireless_psum
-    from repro_torch.models import make_model
-    cfg = dataclasses.replace(get_config(TINYLLAMA), n_layers=2)
+    from repro_torch.models import make_batch, make_model
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = make_model(cfg, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
-                           device="cuda")
-    grads = client_grads(model, tokens, 4)
+    grads = client_grads(model, make_batch(cfg, 8, 128, gen), 4)
     rnd = WirelessRound(weight=torch.tensor([0.5, 0.0, 1.5, 1.0]),
                         alpha=torch.tensor(2.5),
                         noise_scale=torch.tensor(1e-3),
@@ -2914,7 +3116,7 @@ def psum_kernel_vs_plain():
         check(all(bool(torch.isfinite(a).all()) for a in kern),
               f"wireless_psum {mode}: not finite")
         result[mode] = counts
-    emit(phase="psum_kernel_vs_plain", arch=TINYLLAMA, n_layers=2,
+    emit(phase="psum_kernel_vs_plain", arch=arch, n_layers=cfg.n_layers,
          clients=4, leaves=n_leaves, dtype="bfloat16", bit_equal=True,
          launches={m: {k: v for k, v in c.items() if v}
                    for m, c in result.items()})
@@ -3035,6 +3237,185 @@ def train_full():
         del model
     free_card()
     return total
+
+
+WHISPER_LEAVES = 27
+WHISPER_RUN = dict(batch=8, seq=128, n_clients=4)
+
+
+def whisper_train():
+    """whisper-tiny's FL train step at full width and depth (bf16, random
+    weights from seed 0) through ``make_train_step``, which the text-only
+    launcher does not drive: 3 steps of 8 x 128 decoder tokens with frames
+    (8, 1500, 384) over 4 clients under each aggregator, each step's
+    round made as the launcher makes it (its design, fading and weights);
+    counts read around each step: exactly 27 ``ota_combine_keyed`` a step
+    on OTA, 108 ``dithered_quantize`` (4 clients x 27 leaves) on digital,
+    nothing else; finite losses and parameters. Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rngstream
+    from repro_torch.core.channel import FadingProcess
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import fl_round_arrays, make_train_step
+    from repro_torch.models import make_batch, make_model, param_count
+    from repro_torch.optim import SGDConfig
+    cfg = get_config(WHISPER)
+    n = WHISPER_RUN["n_clients"]
+    dep, ota_p = train_mod.design(n, eta=1.0, g_max=10.0)
+    taus, gam = ota_p.thresholds(), float(np.mean(ota_p.gammas))
+    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": WHISPER_LEAVES},
+                "digital": {"dithered_quantize": n * WHISPER_LEAVES}}
+    total = {}
+    for agg in ("ideal", "ota", "digital"):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(cfg, seed=0)
+        n_params = param_count(model)
+        check(n_params == FRONT_ENDS[WHISPER]["params"],
+              f"whisper-tiny has {n_params} parameters")
+        step = make_train_step(model, n_clients=n, aggregator=agg,
+                               sgd=SGDConfig(eta=1.0),
+                               batch=WHISPER_RUN["batch"],
+                               seq=WHISPER_RUN["seq"])
+        fading = FadingProcess(dep, seed=7)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        losses, step_s = [], []
+        kernels.reset_launch_counts()
+        for t in range(3):
+            batch_in = make_batch(cfg, WHISPER_RUN["batch"],
+                                  WHISPER_RUN["seq"], gen)
+            fl = fl_round_arrays(
+                n, gammas=ota_p.gammas / gam,
+                chis=(fading.gains(t) >= taus).astype(np.float64),
+                alpha=ota_p.alpha / gam,
+                noise_scale=np.sqrt(ota_p.noise_psd) / ota_p.alpha * 1e-2,
+                levels=255.0)
+            torch.cuda.synchronize()
+            c0 = kernels.launch_counts()
+            ts = time.perf_counter()
+            losses.append(float(step(batch_in, fl, rngstream.prng_key(t))))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            c1 = kernels.launch_counts()
+            got = {k: c1[k] - c0[k] for k in c0}
+            check(got == {k: per_step[agg].get(k, 0) for k in got},
+                  f"whisper-tiny {agg}: step {t} launches {got}")
+        counts = kernels.launch_counts()
+        check(counts == {k: 3 * per_step[agg].get(k, 0) for k in counts},
+              f"whisper-tiny {agg}: launches {counts}")
+        check(all(np.isfinite(losses))
+              and all(bool(torch.isfinite(p).all())
+                      for p in model.parameters()),
+              f"whisper-tiny {agg}: losses {losses} or parameters not "
+              f"finite")
+        tokens = WHISPER_RUN["batch"] * WHISPER_RUN["seq"]
+        emit(phase="main_path", run=f"whisper-tiny train {agg}",
+             arch=WHISPER, n_layers=cfg.n_layers,
+             encoder_layers=cfg.encoder_layers, params=n_params,
+             leaves=WHISPER_LEAVES, dtype="bfloat16", aggregator=agg,
+             clients=n, steps=3, batch=WHISPER_RUN["batch"],
+             seq=WHISPER_RUN["seq"], frames=cfg.encoder_positions,
+             launches=counts, loss=losses, step_s=step_s,
+             steps_per_s=3 / sum(step_s),
+             tokens_per_s=3 * tokens / sum(step_s),
+             steady_steps_per_s=2 / sum(step_s[1:]),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del model, step
+    free_card()
+    return total
+
+
+OPTIM_SCALE_ULPS = 16         # the tests' bound on the projection's scale
+
+
+def optim_vs_cpu():
+    """Adam and the projection on whisper-tiny's bf16 parameters (full
+    size, seed 0), on the card against the CPU from the same parameters
+    and the same gradients (one loss's, 2 x 128 tokens with frames, taken
+    on the card once): 3 Adam steps with weight decay, parameters and
+    both moments bit-equal; then the projection onto the ball of radius
+    10 in the reference's leaf order: the scale within 16 ulps (its sums
+    of squares are reductions, added in other orders on the card and on
+    the CPU) and each parameter within 1 bf16 ulp."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.models import loss_fn, make_batch, make_model
+    from repro_torch.optim import (AdamConfig, adam_init, adam_update,
+                                   project_l2_ball)
+    cfg = get_config(WHISPER)
+    card_m = make_model(cfg, seed=0)
+    cpu_m = make_model(cfg, seed=None, device="cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    loss, _ = loss_fn(card_m, make_batch(
+        cfg, 2, 128, torch.Generator(device="cuda").manual_seed(11)))
+    loss.backward()
+    card_p = [p for leaf in interop.reference_leaves(card_m)
+              for p in leaf.params]
+    cpu_p = [p for leaf in interop.reference_leaves(cpu_m)
+             for p in leaf.params]
+    card_g = [p.grad for p in card_p]
+    cpu_g = [g.cpu() for g in card_g]
+    adam = AdamConfig(eta=1e-3, weight_decay=0.01)
+    card_s, cpu_s = adam_init(card_p), adam_init(cpu_p)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(3):
+            card_s = adam_update(adam, card_p, card_g, card_s)
+        torch.cuda.synchronize()
+        card_adam_s = time.perf_counter() - t0
+        for _ in range(3):
+            cpu_s = adam_update(adam, cpu_p, cpu_g, cpu_s)
+
+    def differing(a, b):
+        return sum(int((x.cpu() != y).sum()) for x, y in zip(a, b))
+
+    adam_diff = {"params": differing(card_p, cpu_p),
+                 "m": differing(card_s["m"], cpu_s["m"]),
+                 "v": differing(card_s["v"], cpu_s["v"])}
+    check(sum(adam_diff.values()) == 0
+          and int(card_s["step"]) == int(cpu_s["step"]) == 3,
+          f"Adam on the card vs the CPU: entries differing {adam_diff}")
+    card_scale = project_l2_ball(card_p, 10.0)
+    cpu_scale = project_l2_ball(cpu_p, 10.0)
+
+    def bits(t, shift):
+        return (t.detach().cpu().float().numpy().view(np.int32)
+                .astype(np.int64) >> shift)
+
+    scale_ulps = int(abs(bits(card_scale, 0) - bits(cpu_scale, 0)))
+    param_ulps = max(int(np.abs(bits(a, 16) - bits(b, 16)).max())
+                     for a, b in zip(card_p, cpu_p))
+    flipped = differing(card_p, cpu_p)
+    check(float(cpu_scale) < 1.0 and scale_ulps <= OPTIM_SCALE_ULPS
+          and param_ulps <= 1,
+          f"projection on the card vs the CPU: scale {float(card_scale)} "
+          f"against {float(cpu_scale)} ({scale_ulps} ulps), parameters "
+          f"{param_ulps} bf16 ulps")
+    emit(phase="optim_vs_cpu", arch=WHISPER, dtype="bfloat16",
+         params=sum(p.numel() for p in card_p), adam_steps=3,
+         weight_decay=0.01, adam_entries_differing=adam_diff,
+         adam_bit_equal=True, card_adam_s=card_adam_s,
+         projection_radius=10.0, scale_card=float(card_scale),
+         scale_cpu=float(cpu_scale), scale_ulps=scale_ulps,
+         scale_limit_ulps=OPTIM_SCALE_ULPS, param_max_bf16_ulps=param_ulps,
+         params_differing=flipped)
+    del card_m, card_p, card_g, card_s
+    free_card()
+
+
+def whisper_train_phase():
+    """Phase 10's front-end lines; returns the main-path train counts."""
+    psum_kernel_vs_plain(WHISPER, n_layers=None)
+    counts = whisper_train()
+    optim_vs_cpu()
+    return counts
 
 
 def main() -> int:
@@ -3395,6 +3776,11 @@ def main() -> int:
     moe_small_vs_cpu()
     chunked_vs_einsum()
     moe_full()
+    # then the audio and VLM front ends, which launch no kernel either:
+    # whisper-tiny and internvl2-2b at full width and depth, whisper-tiny
+    # in f32 and internvl2-2b scaled down on the card against the CPU
+    for k, v in front_ends_serve().items():
+        launches[k] = launches.get(k, 0) + v
 
     # 10. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
@@ -3403,6 +3789,11 @@ def main() -> int:
     psum_kernel_vs_plain()
     train_small_vs_cpu()
     for k, v in train_full().items():
+        launches[k] = launches.get(k, 0) + v
+    # then whisper-tiny: the collective's two routes on its 27 leaves, its
+    # train step at full width through make_train_step, and Adam and the
+    # projection on its parameters, card against CPU
+    for k, v in whisper_train_phase().items():
         launches[k] = launches.get(k, 0) + v
 
     # 11. the kernel table at the main path's shapes and types (launches:

@@ -234,7 +234,9 @@ def model_state(params: dict) -> dict:
     of NumPy arrays) -> the port's ``state_dict``. Stacked leaves
     ``groups/b<i>/...`` carry a leading group axis: group g, block i is the
     port's layer ``g * len(pattern) + i``; tail layer ``tail/<j>/...`` is
-    layer ``n_groups * len(pattern) + j``. Load with
+    layer ``n_groups * len(pattern) + j``; the encoder's
+    ``enc_groups/b0/...`` are stacked over its layers: layer g is the
+    port's ``enc_layers.<g>``. Load with
     ``model.load_state_dict(model_state(...))``."""
     state = {}
     groups = params.get("groups", {})
@@ -247,10 +249,12 @@ def model_state(params: dict) -> dict:
             j, _, leaf_name = rest.partition(".")
             state[f"layers.{n_grouped + int(j)}.{leaf_name}"] = \
                 _leaf_tensor(leaf)
-        elif head == "groups":
+        elif head in ("groups", "enc_groups"):
             block, _, leaf_name = rest.partition(".")
+            port, n_blocks = (("layers", pattern_len) if head == "groups"
+                              else ("enc_layers", 1))
             for g, v in enumerate(np.asarray(leaf)):
-                state[f"layers.{g * pattern_len + int(block[1:])}."
+                state[f"{port}.{g * n_blocks + int(block[1:])}."
                       f"{leaf_name}"] = _leaf_tensor(v)
         else:
             state[name] = _leaf_tensor(leaf)
@@ -287,20 +291,27 @@ def reference_leaves(model) -> list:
     the reference's leaves, in the order ``jax.tree.leaves`` gives them
     (keys sorted at every level). Layer i of a pattern of P kinds is block
     ``b<i % P>`` of group ``i // P`` while whole groups last, then
-    ``tail/<j>``. Per-leaf quantities of the wireless collective (the
-    quantizer's m, the key of ``split(key, n_leaves)``, the dither and
-    noise counters) are taken over these stacked leaves."""
+    ``tail/<j>``; encoder layer i is group i of ``enc_groups/b0``. So an
+    encoder-decoder's leaves run ``embed``, ``enc_groups/...``,
+    ``enc_norm``, ``final_norm``, ``groups/...``, ``lm_head``, and a
+    block's ``attn``, ``cross``, ``ln1``, ``ln2``, ``ln_cross``, ``mlp``.
+    Per-leaf quantities of the wireless collective (the quantizer's m,
+    the key of ``split(key, n_leaves)``, the dither and noise counters)
+    are taken over these stacked leaves."""
     pattern_len = len(model.cfg.layer_pattern)
     n_grouped = model.cfg.n_layers // pattern_len * pattern_len
     leaves: dict = {}
     for name, p in model.named_parameters():
         head, _, rest = name.partition(".")
-        if head != "layers":
+        if head not in ("layers", "enc_layers"):
             leaves[(head,)] = [False, p]
             continue
         i, _, leaf_name = rest.partition(".")
         i = int(i)
-        if i < n_grouped:
+        if head == "enc_layers":
+            key = ("enc_groups", "b0", *leaf_name.split("."))
+            leaves.setdefault(key, [True]).append(p)
+        elif i < n_grouped:
             key = ("groups", f"b{i % pattern_len}", *leaf_name.split("."))
             leaves.setdefault(key, [True]).append(p)
         else:

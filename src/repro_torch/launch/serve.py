@@ -4,11 +4,12 @@ with temperature sampling (counterpart of ``examples/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --tokens 32
 
 The CLI serves the reference's ``scaled_down()`` sizes of ``--arch``
-(falcon-mamba-7b by default; recurrentgemma-2b, the dense models and the
-MoE models qwen3-moe-30b-a3b and kimi-k2-1t-a32b too) with random
-weights, the Mamba scan and the RG-LRU recurrence on their hand-written
-kernels (``mamba_kernel``, ``rglru_kernel``), on the card unless
-``--device cpu``:
+(falcon-mamba-7b by default; any registered arch: recurrentgemma-2b, the
+dense models, the MoE models qwen3-moe-30b-a3b and kimi-k2-1t-a32b,
+whisper-tiny fed random frame embeddings and internvl2-2b fed random
+patch embeddings) with random weights, the Mamba scan and the RG-LRU
+recurrence on their hand-written kernels (``mamba_kernel``,
+``rglru_kernel``), on the card unless ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --device cpu
@@ -39,6 +40,7 @@ SERVE_FLAGS = {"mamba_kernel": True, "rglru_kernel": True}
 @dataclasses.dataclass
 class ServeResult:
     prompt: torch.Tensor              # (B, S) prompt tokens
+    prefix: int                       # positions a request's prefill fills
     generated: torch.Tensor           # (B, T + 1): argmax, then T samples
     prefill_logits: torch.Tensor      # (B, V)
     decode_logits: Optional[torch.Tensor]   # (T, B, V) if kept
@@ -49,7 +51,8 @@ class ServeResult:
 
     @property
     def prefill_tokens_per_s(self) -> float:
-        return self.prompt.numel() / self.prefill_s
+        """Prefilled positions (a VLM's patches included) a second."""
+        return self.prompt.shape[0] * self.prefix / self.prefill_s
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -67,17 +70,19 @@ def serve(model, *, batch: int = 4, prompt_len: int = 32, tokens: int = 32,
           flags: Optional[dict] = None, feed: Optional[torch.Tensor] = None,
           keep_logits: bool = False) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens (drawn
-    from a CPU generator seeded with ``seed``), then decode ``tokens``
-    steps.
+    from a CPU generator seeded with ``seed``, with ``make_batch``'s
+    patches or frames), then decode ``tokens`` steps.
     The first decode input is the prefill's argmax; each later one is
     sampled at ``temperature`` from a generator seeded with ``seed + 1``
     — unless ``feed`` (B, tokens + 1), another run's ``generated``, gives
-    them all. Times are host clock around work that ends in a
-    synchronise."""
+    them all. As ``examples/serve.py``: caches of ``prompt_len +
+    vision_prefix + tokens + 1`` slots, the first decode at the text
+    tokens plus the patch prefix. Times are host clock around work that
+    ends in a synchronise."""
     cfg, dev = model.cfg, model.device
     flags = SERVE_FLAGS if flags is None else flags
     prompt_len = effective_seq(cfg, prompt_len)
-    cache_len = prompt_len + tokens + 1
+    cache_len = prompt_len + cfg.vision_prefix + tokens + 1
     prefill = make_prefill_step(model, batch=batch, seq=prompt_len,
                                 cache_len=cache_len, flags=flags)
     decode = make_decode_step(model, batch=batch, cache_len=cache_len,
@@ -86,6 +91,7 @@ def serve(model, *, batch: int = 4, prompt_len: int = 32, tokens: int = 32,
     inputs = {k: v.to(dev) for k, v in make_batch(
         cfg, batch, prompt_len, torch.Generator().manual_seed(seed)).items()}
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    prefix = inputs["tokens"].shape[1] + cfg.vision_prefix
 
     _sync(dev)
     counts0 = kernels.launch_counts()
@@ -101,7 +107,7 @@ def serve(model, *, batch: int = 4, prompt_len: int = 32, tokens: int = 32,
     generated, kept = [tok], []
     t0 = time.perf_counter()
     for i in range(tokens):
-        pos = torch.full((batch,), prompt_len + i, dtype=torch.int64,
+        pos = torch.full((batch,), prefix + i, dtype=torch.int64,
                          device=dev)
         logits, caches = decode(tok, pos, caches, memory)
         if keep_logits:
@@ -116,7 +122,8 @@ def serve(model, *, batch: int = 4, prompt_len: int = 32, tokens: int = 32,
     decode_s = time.perf_counter() - t0
     counts2 = kernels.launch_counts()
     return ServeResult(
-        prompt=inputs["tokens"], generated=torch.cat(generated, dim=1),
+        prompt=inputs["tokens"], prefix=prefix,
+        generated=torch.cat(generated, dim=1),
         prefill_logits=prefill_logits,
         decode_logits=torch.stack(kept) if keep_logits else None,
         prefill_s=prefill_s, decode_s=decode_s,

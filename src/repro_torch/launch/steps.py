@@ -6,7 +6,8 @@ Plain functions over a model already on its device: the reference's mesh,
 shardings and ``jit`` wait for the DeviceMesh item (ROADMAP Queue 1
 item 10 step 6). FL clients are the reference's data-axis slices: client m of N
 takes batch rows [m B/N, (m+1) B/N) and runs on the same card, one after
-another.
+another; every leaf of a batch (``tokens``, and an audio model's
+``frames`` or a VLM's ``patches``) is cut by those rows.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def make_train_step(model: Transformer, *, n_clients: int = 1,
                     sgd: SGDConfig = SGDConfig(eta=1e-2), batch: int = 8,
                     seq: int = 128, use_kernel: bool = True):
     """``step(batch_in, fl, key) -> mean unweighted loss`` (a 0-dim f32
-    tensor); the model's parameters are updated in place.
+    tensor); the model's parameters are updated in place. ``batch_in``
+    has ``api.batch_spec(cfg, batch, seq)``'s leaves and shapes.
 
     Each client's loss is multiplied by its wireless weight before the
     backward pass (``fl["weight"][m]``: grad(w loss) = w grad), the
@@ -63,7 +65,6 @@ def make_train_step(model: Transformer, *, n_clients: int = 1,
     if batch % n_clients:
         raise ValueError(f"batch {batch} does not split over {n_clients} "
                          f"clients")
-    seq = api.effective_seq(model.cfg, seq)
     rows = batch // n_clients
     leaves = interop.reference_leaves(model)
     params = [p for leaf in leaves for p in leaf.params]
@@ -72,10 +73,7 @@ def make_train_step(model: Transformer, *, n_clients: int = 1,
         return p.grad if p.grad is not None else torch.zeros_like(p)
 
     def step(batch_in: dict, fl: dict, key):
-        tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, seq):
-            raise ValueError(f"train step built for ({batch}, {seq}) "
-                             f"tokens, got {tuple(tokens.shape)}")
+        api.check_batch(model.cfg, batch_in, batch, seq)
         weight = fl["weight"].to(model.device)
         losses = []
 
@@ -83,7 +81,8 @@ def make_train_step(model: Transformer, *, n_clients: int = 1,
             for m in range(n_clients):
                 model.zero_grad(set_to_none=True)
                 loss, _ = api.loss_fn(
-                    model, {"tokens": tokens[m * rows:(m + 1) * rows]})
+                    model, {k: v[m * rows:(m + 1) * rows]
+                            for k, v in batch_in.items()})
                 (loss * weight[m]).backward()
                 losses.append(loss.detach())
                 yield [leaf.value(grads_of) for leaf in leaves]
@@ -113,16 +112,12 @@ def make_prefill_step(model: Transformer, *, batch: int, seq: int,
                       cache_len: Optional[int] = None,
                       flags: Optional[dict] = None):
     """``fn(batch_in) -> (logits (B, V), caches, memory)`` for prompts of
-    ``batch`` x ``effective_seq(seq)`` tokens."""
-    seq = api.effective_seq(model.cfg, seq)
-    cache_len = cache_len or seq
+    ``api.batch_spec(cfg, batch, seq)``'s leaves and shapes."""
+    cache_len = cache_len or api.effective_seq(model.cfg, seq)
     flags = dict(flags or {})
 
     def prefill(batch_in):
-        tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, seq):
-            raise ValueError(f"prefill step built for ({batch}, {seq}) "
-                             f"tokens, got {tuple(tokens.shape)}")
+        api.check_batch(model.cfg, batch_in, batch, seq)
         return api.prefill(model, batch_in, cache_len, flags)
 
     return prefill

@@ -14,6 +14,9 @@ thresholds -> the FL train step with the wireless collective over
 ``--arch`` takes the reduced (``scaled_down()``, f32) variant unless
 ``--no-reduced``; without ``--arch`` a small llama-style model of
 ``--layers`` x ``--d-model`` in f32. Weights are random, from ``--seed``.
+The launcher feeds tokens only, as the reference's does, so it refuses
+the audio and VLM archs (whisper-tiny, internvl2-2b); they train through
+``steps.make_train_step`` with frames or patches in the batch.
 """
 from __future__ import annotations
 
@@ -91,7 +94,17 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
     ``np.random.default_rng(seed)``, as the reference launcher does: OTA
     participation chi_m = 1{|h_m|^2 >= tau_m} from the fading process
     (seed 7), weights gamma_m / mean(gamma), alpha / mean(gamma), noise
-    scale 1e-2 sqrt(N0)/alpha, 255 quantizer levels, key t at step t."""
+    scale 1e-2 sqrt(N0)/alpha, 255 quantizer levels, key t at step t.
+    The batches are tokens only, as the reference's, so an audio or VLM
+    model raises ValueError."""
+    cfg = model.cfg
+    if cfg.arch_type in ("audio", "vlm"):
+        raise ValueError(
+            f"{cfg.name}: the launcher feeds tokens only, and an "
+            f"{cfg.arch_type} model also needs "
+            f"{'frames' if cfg.arch_type == 'audio' else 'patches'}; "
+            f"train it through launch.steps.make_train_step with them in "
+            f"the batch")
     dev = model.device
     dep, ota_params = design(n_clients, eta=eta, g_max=g_max)
     log(f"clients={n_clients} p_m="

@@ -1,8 +1,16 @@
 """Model-level API: inputs, the training loss, prefill and decode
 (counterpart of ``repro.models.api``).
 
-A batch is ``{"tokens": (B, S) int64}`` (decoder-only LMs; the VLM and
-audio inputs come with their front ends, ROADMAP Queue 1 item 10 step 4).
+A batch is a dict (``batch_spec``):
+
+  * decoder LM: ``{"tokens": (B, S) int64}``;
+  * vlm: ``{"tokens": (B, S_text), "patches": (B, P, d)}``, the P =
+    ``vision_prefix`` patch embeddings going in front of the text;
+  * audio: ``{"tokens": (B, S_dec), "frames": (B, S_enc, d)}``, the frame
+    embeddings the encoder reads.
+
+The front ends' conv / mel and vision encoders are stubs in the
+reference too: the embeddings come in as inputs.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -13,7 +21,6 @@ import torch
 
 from ..device import resolve_device
 from .common import ModelConfig
-from .layers import NOT_PORTED
 from .transformer import Transformer
 
 MOE_AUX_COEF = 0.01
@@ -37,43 +44,93 @@ def effective_seq(cfg: ModelConfig, seq: int) -> int:
     return seq
 
 
+def batch_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Every model input's (shape, dtype) (``repro.models.api.batch_spec``):
+    a VLM's text is ``max(s - vision_prefix, 1)`` tokens after its
+    patches, an audio model's frames are ``encoder_positions`` long; s is
+    ``effective_seq(cfg, seq)``."""
+    s = effective_seq(cfg, seq)
+    emb = (cfg.dtype,)
+    if cfg.arch_type == "vlm":
+        return {"tokens": ((batch, max(s - cfg.vision_prefix, 1)),
+                           torch.int64),
+                "patches": ((batch, cfg.vision_prefix, cfg.d_model),) + emb}
+    spec = {"tokens": ((batch, s), torch.int64)}
+    if cfg.arch_type == "audio":
+        spec["frames"] = ((batch, cfg.encoder_positions, cfg.d_model),) + emb
+    return spec
+
+
+def check_batch(cfg: ModelConfig, batch_in: dict, batch: int,
+                seq: int) -> None:
+    """Raise ValueError unless ``batch_in`` has exactly the leaves and
+    shapes of ``batch_spec(cfg, batch, seq)``."""
+    want = {k: shape for k, (shape, _) in batch_spec(cfg, batch,
+                                                     seq).items()}
+    got = {k: tuple(v.shape) for k, v in batch_in.items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: step built for inputs {want}, "
+                         f"got {got}")
+
+
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                generator: torch.Generator) -> dict:
-    """A random batch of prompt tokens, drawn on the generator's device."""
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.arch_type} inputs {NOT_PORTED}")
-    s = effective_seq(cfg, seq)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, s),
-                                    generator=generator,
-                                    device=generator.device)}
+    """A random batch of ``batch_spec``'s shapes, drawn on the generator's
+    device: the tokens first, then the patch or frame embeddings
+    (standard normals drawn in f32, cast to ``cfg.dtype``)."""
+    out = {}
+    for name, (shape, dtype) in batch_spec(cfg, batch, seq).items():
+        if name == "tokens":
+            out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=generator,
+                                      device=generator.device)
+        else:
+            out[name] = torch.randn(shape, generator=generator,
+                                    device=generator.device).to(dtype)
+    return out
 
 
 def _embed_inputs(model: Transformer, batch: dict):
-    """Returns (x (B, S, d), positions (B, S), loss_mask (B, S)) of a
-    decoder-only text batch."""
-    if model.cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(f"{model.cfg.arch_type} inputs {NOT_PORTED}")
+    """Returns (x (B, S, d), positions (B, S), loss_mask (B, S), memory):
+    a VLM's patches, cast to the embedding dtype, go in front of its
+    tokens and are masked out of the loss; an audio model's frames go
+    through the encoder into the memory (None otherwise)."""
+    cfg = model.cfg
     tokens = batch["tokens"]
     x = model.embed[tokens]
+    memory = None
     B, S = tokens.shape
+    mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+    if cfg.arch_type == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        mask = torch.cat([torch.zeros((B, cfg.vision_prefix),
+                                      dtype=torch.bool,
+                                      device=tokens.device), mask], dim=1)
+        S = x.shape[1]
+    elif cfg.arch_type == "audio":
+        memory = model.encode(batch["frames"])
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
-    return x, positions, mask
+    return x, positions, mask, memory
 
 
 def loss_fn(model: Transformer, batch: dict, flags: Optional[dict] = None):
     """Mean next-token cross-entropy (f32 log-softmax, the masked mean of
     the negative log-likelihood) plus ``MOE_AUX_COEF`` times the MoE
-    layers' summed load-balance term (``repro.models.api.loss_fn``).
-    Returns (loss, {"ce": ce, "aux": aux})."""
-    x, positions, mask = _embed_inputs(model, batch)
-    hidden, _, aux = model(x, positions, mode="train", flags=flags)
+    layers' summed load-balance term (``repro.models.api.loss_fn``), over
+    the text positions: a VLM's logits lose the patch prefix first, so a
+    VLM batch of one text token has no target and a loss of exactly 0,
+    as the reference's. Returns (loss, {"ce": ce, "aux": aux})."""
+    x, positions, mask, memory = _embed_inputs(model, batch)
+    hidden, _, aux = model(x, positions, mode="train", flags=flags,
+                           memory=memory)
     logits = model.logits(hidden)                           # (B, S, V)
-    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    tgt = batch["tokens"][:, 1:]
+    tgt_tok = batch["tokens"]
+    n_prefix = logits.shape[1] - tgt_tok.shape[1]           # patch prefix
+    lp = torch.log_softmax(logits[:, n_prefix:-1].float(), dim=-1)
+    tgt = tgt_tok[:, 1:]
     nll = -torch.gather(lp, -1, tgt[..., None].long())[..., 0]
-    m = mask[:, 1:].float()
+    m = mask[:, n_prefix + 1:].float()
     ce = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
@@ -86,27 +143,30 @@ def prefill(model: Transformer, batch: dict, cache_len: int,
     as the reference's does (``flags["cache_len"]``).
 
     Returns (logits_last (B, V), caches, memory); ``memory`` (the
-    encoder's output) is None for decoder-only models.
+    encoder's output, for ``decode_step``) is None for decoder-only
+    models.
     """
-    x, positions, _ = _embed_inputs(model, batch)
+    x, positions, _, memory = _embed_inputs(model, batch)
     caches = model.init_cache(x.shape[0], cache_len)
     fl = dict(flags or {})
     fl["cache_len"] = cache_len
     hidden, caches, _ = model(x, positions, mode="prefill", caches=caches,
-                              flags=fl)
+                              flags=fl, memory=memory)
     logits = model.logits(hidden[:, -1:, :])[:, 0]
-    return logits, caches, None
+    return logits, caches, memory
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor,
                 position: torch.Tensor, caches, memory=None,
                 flags: Optional[dict] = None):
-    """One-token decode. token: (B, 1); position: (B,) absolute index.
+    """One-token decode. token: (B, 1); position: (B,) absolute index (a
+    VLM's count the patch prefix); ``memory``: the prefill's, which an
+    encoder-decoder's cross-attention reads at every step.
     Returns (logits (B, V), new_caches)."""
     x = model.embed[token]
     hidden, caches, _ = model(x, position[:, None], mode="decode",
-                              caches=caches, flags=flags)
+                              caches=caches, flags=flags, memory=memory)
     logits = model.logits(hidden[:, 0:1, :])[:, 0]
     return logits, caches
 

@@ -35,9 +35,9 @@ options:
   * ``scan_chunk`` — the chunk of the plain chunked routes (default 128
     for Mamba, 256 for the RG-LRU, the reference's).
 
-Cross-attention and the bidirectional ``"encoder"`` kind come with the
-front ends (ROADMAP Queue 1 item 10 step 4) and raise
-``NotImplementedError`` until then.
+The front ends' attention: the bidirectional ``"encoder"`` kind (every
+mask entry true, q/k-norm and rope as the decoder's) and cross-attention
+to an encoder memory (``cross_kv``).
 """
 from __future__ import annotations
 
@@ -49,9 +49,6 @@ from ..kernels import ops as kops
 from .common import (ModelConfig, ParamInit, ParamModule, gelu, rms_norm,
                      rope, silu, softplus)
 
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10 step 4: the "
-              "audio and VLM front ends; the port runs dense and MoE "
-              "attention layers, Mamba-1 and RG-LRU layers)")
 EP_NOT_PORTED = ("the expert-parallel MoE route (moe_impl='ep' under a mesh "
                  "or a manual shard) is not ported yet (ROADMAP Queue 1 "
                  "item 10 step 6: multi-card); without a mesh 'ep' runs "
@@ -160,26 +157,36 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
                     cache: Optional[dict] = None, mode: str = "train",
                     flags: Optional[dict] = None,
                     cross_kv: Optional[torch.Tensor] = None):
-    """Causal self-attention, sliding-window for ``kind="local"``
+    """Causal self-attention, sliding-window for ``kind="local"``,
+    bidirectional for ``kind="encoder"``
     (``repro.models.layers.attention_apply``). ``mode="train"`` and
     ``"prefill"`` attend over the whole sequence; a prefill also returns
     the cache it fills (``flags["cache_len"]`` long, default S). ``"decode"``
     (S == 1) writes the token's k, v and position into its ring slot of
     ``cache`` and attends over the cache. ``flags["attn_impl"] ==
     "chunked"`` attends by ``_attend_chunked`` in every mode, anything
-    else by ``_attend_einsum``, as the reference routes. Returns (y,
+    else by ``_attend_einsum``, as the reference routes.
+
+    ``cross_kv`` (B, T_enc, d), an encoder memory, makes it
+    cross-attention: q from x, k and v from the memory, no rope, no
+    q/k-norm, every (query, key) pair unmasked, in every mode; the cache
+    comes back as it was given (the reference recomputes the memory's
+    k and v at every decode step, and so does the port). Returns (y,
     new_cache or None).
     """
     flags = flags or {}
-    if cross_kv is not None:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"{kind} attention {NOT_PORTED}")
     attend = (_attend_chunked if flags.get("attn_impl", "einsum") == "chunked"
               else _attend_einsum)
     B, S, _ = x.shape
     window = cfg.window_size if kind == "local" else None
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cross_kv is not None:
+        k = torch.einsum("bsd,dhk->bshk", cross_kv, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", cross_kv, p["wv"])
+        mask = torch.ones((B, 1, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = attend(q, k, v, mask)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q, k = _qk_normalize(cfg, p, q, k)
@@ -200,7 +207,10 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
         y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
         return y, {"k": ck, "v": cv, "pos": cpos}
 
-    mask = _causal_mask(positions, positions, window)
+    if kind == "encoder":                                # bidirectional
+        mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
+    else:
+        mask = _causal_mask(positions, positions, window)
     out = attend(q, k, v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if mode != "prefill":

@@ -8,7 +8,11 @@ of the port is the reference's group ``i // len(pattern)``, block
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` and
 ``layers.<i>.ln1``, ``layers.<i>.mamba.<leaf>``, ``layers.<i>.attn.<leaf>``
 or ``layers.<i>.rec.<leaf>``, ``layers.<i>.ln2``, then ``layers.<i>.mlp.<leaf>``
-or, in MoE models, ``layers.<i>.moe.<leaf>``.
+or, in MoE models, ``layers.<i>.moe.<leaf>``. An encoder-decoder
+(whisper) adds ``layers.<i>.ln_cross`` and ``layers.<i>.cross.<leaf>`` to
+each decoder layer, and the encoder stack ``enc_layers.<i>.<leaf>`` (the
+reference's ``enc_groups/b0/...``, stacked over ``encoder_layers``) with
+``enc_norm``.
 Caches are a list with one dict per layer, keyed as the reference's:
 ``{"attn": ...}``, ``{"mamba": ...}`` or ``{"rec": ...}``.
 ``repro_torch.interop`` maps these names to the reference's stacked leaves
@@ -16,9 +20,11 @@ and back.
 
 Mamba-1 layers (falcon-mamba), dense layers (global and local attention
 with the SwiGLU MLP: the llama family, gemma3's pattern), MoE layers
-(attention with the top-k expert block: qwen3-moe, kimi-k2) and RG-LRU
-layers (recurrentgemma's pattern) serve and train. Encoder-decoders and
-VLMs raise ``NotImplementedError`` naming their ROADMAP item.
+(attention with the top-k expert block: qwen3-moe, kimi-k2), RG-LRU
+layers (recurrentgemma's pattern), the encoder-decoder (whisper: an
+encoder of bidirectional attention layers, cross-attention in every
+decoder layer) and the VLM (internvl2: a decoder-only LM fed a patch
+prefix by ``api``) serve and train.
 """
 from __future__ import annotations
 
@@ -32,15 +38,18 @@ from .common import ModelConfig, ParamInit, ParamModule, rms_norm
 
 
 class Layer(ParamModule):
-    """One layer (``_init_layer``): ``ln1`` and the block of its kind, then
-    for attention and RG-LRU layers ``ln2`` and either the MoE block (MoE
-    models) or the MLP, never both (a Mamba layer has neither)."""
+    """One layer (``_init_layer``): ``ln1`` and the block of its kind, in a
+    decoder of an encoder-decoder (``cross``) ``ln_cross`` and the
+    cross-attention, then for attention and RG-LRU layers ``ln2`` and
+    either the MoE block (``moe``) or the MLP, never both (a Mamba layer
+    has neither)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, init: ParamInit):
+    def __init__(self, cfg: ModelConfig, kind: str, init: ParamInit, *,
+                 cross: bool = False, moe: bool = False):
         super().__init__()
         self.kind = kind
         self.param(init, "ln1", (cfg.d_model,), init="ones")
-        if kind in ("global", "local"):
+        if kind in ("global", "local", "encoder"):
             self.attn = ParamModule()
             L.init_attention(init, self.attn, cfg)
         elif kind == "mamba":
@@ -51,9 +60,13 @@ class Layer(ParamModule):
             L.init_rglru(init, self.rec, cfg)
         else:
             raise ValueError(kind)
+        if cross and kind != "encoder":
+            self.param(init, "ln_cross", (cfg.d_model,), init="ones")
+            self.cross = ParamModule()
+            L.init_attention(init, self.cross, cfg)
         if kind != "mamba" and cfg.d_ff > 0:
             self.param(init, "ln2", (cfg.d_model,), init="ones")
-            if cfg.n_experts > 0:
+            if moe:
                 self.moe = ParamModule()
                 L.init_moe(init, self.moe, cfg)
             else:
@@ -61,9 +74,12 @@ class Layer(ParamModule):
                 L.init_mlp(init, self.mlp, cfg)
 
     def forward(self, cfg: ModelConfig, x, positions, *, cache=None,
-                mode="train", flags=None):
+                mode="train", flags=None, memory=None):
         """``_layer_apply``: (x, new_cache, aux); aux is the MoE block's
-        load-balance term, None for a layer without one."""
+        load-balance term, None for a layer without one. A layer with
+        cross-attention reads the encoder ``memory`` in every mode, and
+        raises without one (the reference's would attend over x instead,
+        ROADMAP Queue 3)."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if self.kind == "mamba":
             y, nc = L.mamba_apply(
@@ -84,6 +100,17 @@ class Layer(ParamModule):
                 flags=flags)
             new_cache = None if nc is None else {"attn": nc}
         x = x + y
+        if hasattr(self, "cross"):
+            if memory is None:
+                raise ValueError(
+                    "a decoder layer with cross-attention needs the "
+                    "encoder memory (prefill returns it; pass it to "
+                    "decode_step)")
+            h = rms_norm(x, self.ln_cross, cfg.norm_eps)
+            y, _ = L.attention_apply(cfg, self.cross, h, positions,
+                                     mode="train", flags=flags,
+                                     cross_kv=memory)
+            x = x + y
         aux = None
         if hasattr(self, "ln2"):
             h = rms_norm(x, self.ln2, cfg.norm_eps)
@@ -96,21 +123,20 @@ class Layer(ParamModule):
 
 
 class Transformer(nn.Module):
-    """A decoder-only LM for one ModelConfig.
+    """An LM for one ModelConfig: decoder-only, or with an encoder stack
+    when ``cfg.encoder_layers > 0``.
 
     ``generator`` draws the parameters on ``device`` (embed, final_norm,
-    lm_head, then layer by layer); ``generator=None`` leaves them
-    uninitialised, for weights loaded after (``interop.model_state``).
+    lm_head, then layer by layer, then the encoder's layers and
+    enc_norm); ``generator=None`` leaves them uninitialised, for weights
+    loaded after (``interop.model_state``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.encoder_layers > 0 or cfg.vision_prefix > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder and VLM front ends "
-                f"{L.NOT_PORTED}")
         self.cfg = cfg
+        cross = cfg.encoder_layers > 0
         init = ParamInit(cfg.dtype, device, generator)
         self.embed = nn.Parameter(
             init((cfg.vocab_size, cfg.d_model), scale=0.02))
@@ -118,7 +144,13 @@ class Transformer(nn.Module):
         self.lm_head = nn.Parameter(
             init((cfg.d_model, cfg.vocab_size), scale=0.02))
         self.layers = nn.ModuleList(
-            Layer(cfg, cfg.kind(i), init) for i in range(cfg.n_layers))
+            Layer(cfg, cfg.kind(i), init, cross=cross,
+                  moe=cfg.n_experts > 0) for i in range(cfg.n_layers))
+        if cross:
+            self.enc_layers = nn.ModuleList(
+                Layer(cfg, "encoder", init)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = nn.Parameter(init((cfg.d_model,), init="ones"))
 
     @property
     def device(self) -> torch.device:
@@ -145,18 +177,34 @@ class Transformer(nn.Module):
             caches.append(c)
         return caches
 
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B, S_enc, d), then
+        ``enc_norm`` (``Transformer.encode``). The reference calls its
+        encoder layers with ``flags=None``, so they attend by the einsum
+        route whatever ``attn_impl`` the caller chose; so does the
+        port."""
+        B, S, _ = frames.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=frames.device)[None].expand(B, S)
+        x = frames
+        for layer in self.enc_layers:
+            x, _, _ = layer(self.cfg, x, pos, mode="train", flags=None)
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
     def forward(self, x, positions=None, *, mode="train", caches=None,
-                flags=None):
+                flags=None, memory=None):
         """Backbone over embeddings x (B, S, d) at ``positions`` (B, S)
-        (attention layers; Mamba and RG-LRU layers read none). Returns
-        (hidden, caches, aux): aux sums the MoE layers' load-balance terms
-        in f32, layer by layer (0 without MoE layers)."""
+        (attention layers; Mamba and RG-LRU layers read none), the
+        decoder layers' cross-attention over the encoder ``memory``.
+        Returns (hidden, caches, aux): aux sums the MoE layers'
+        load-balance terms in f32, layer by layer (0 without MoE
+        layers)."""
         new_caches = None if caches is None else []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             x, nc, aux = layer(self.cfg, x, positions,
                                cache=None if caches is None else caches[i],
-                               mode=mode, flags=flags)
+                               mode=mode, flags=flags, memory=memory)
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:

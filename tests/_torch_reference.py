@@ -25,6 +25,7 @@ REF_MODULES = ("repro.core.channel", "repro.core.rngstream",
                "repro.models.transformer", "repro.models.api",
                "repro.kernels.ref", "repro.core.collectives",
                "repro.launch.mesh", "repro.launch.steps", "repro.optim.sgd",
+               "repro.optim.adam", "repro.optim.projection",
                "repro.checkpoint.ckpt", "repro.core.faults",
                "repro.core.async_fl", "repro.core.participation",
                "repro.api.results", "repro.api.spec", "repro.api.schemes",
@@ -56,3 +57,18 @@ def ref():
                 parent, _, child = name.rpartition(".")
                 if parent in sys.modules:
                     sys.modules[parent].__dict__.pop(child, None)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one intra-op thread for a module of tiny tensors, restored
+    after. When the suite's workers oversubscribe the cores, threads that
+    wait for each other at every op stall: a 4-client train step of
+    scaled-down whisper-tiny took 71 s on 8 threads and 1.3 s on one,
+    beside 7 busy processes on 8 cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+

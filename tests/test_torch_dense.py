@@ -24,7 +24,8 @@ from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.models import layers as L
-from repro_torch.models import loss_fn, make_model, param_count, prefill
+from repro_torch.models import (loss_fn, make_batch, make_model,
+                                param_count, prefill)
 from repro_torch.models.common import ModelConfig, rope, swiglu
 
 REL = 1e-5
@@ -238,9 +239,10 @@ def test_dense_serve_raises_not_implemented(ref):
     """Dense models serve on both attention routes: the chunked (online
     softmax) prefill and decode of scaled-down tinyllama equal the einsum
     route's within the tolerance (a prompt of 40, then one decode step
-    over the 48-slot cache). What the port does not run raises, naming its
-    ROADMAP item: cross-attention and the bidirectional encoder kind
-    (item 10 step 4)."""
+    over the 48-slot cache). The front ends' blocks, which raised here
+    until they were ported, run on the chunked route as the reference's
+    does: cross-attention over a 2 x 40 memory and the bidirectional
+    encoder kind, on tinyllama's weights."""
     model = make_model(get_config("tinyllama-1.1b").scaled_down(),
                        device="cpu")
     tokens = torch.from_numpy(_tokens(model.cfg, batch=2, seq=40, seed=8))
@@ -259,29 +261,55 @@ def test_dense_serve_raises_not_implemented(ref):
         got, _ = L.attention_apply(model.cfg, attn, x, pos, mode="decode",
                                    cache=caches_c[0]["attn"], flags=chunked)
     _close(got, want)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10 step 4"):
-        L.attention_apply(model.cfg, attn, x, pos, cross_kv=x)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10 step 4"):
-        L.attention_apply(model.cfg, attn, x, pos, kind="encoder",
-                          flags=chunked)
+    jnp = ref.jax.numpy
+    rcfg = ref.configs.get_config("tinyllama-1.1b").scaled_down()
+    p_r = {k: jnp.asarray(v.detach().numpy())
+           for k, v in attn.named_parameters()}
+    mem = np.random.default_rng(10).standard_normal(
+        (2, 40, model.cfg.d_model)).astype(np.float32)
+    pos40 = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40))
+    for kw, rkw in ((dict(cross_kv=torch.from_numpy(mem)),
+                     dict(cross_kv=jnp.asarray(mem))),
+                    (dict(kind="encoder"), dict(kind="encoder"))):
+        q = mem if "kind" in kw else np.asarray(x)
+        qpos = pos40 if "kind" in kw else np.asarray(pos, np.int32)
+        with torch.no_grad():
+            got, _ = L.attention_apply(model.cfg, attn, torch.from_numpy(q),
+                                       torch.from_numpy(qpos.copy()),
+                                       flags=chunked, **kw)
+        want, _ = ref.layers.attention_apply(
+            rcfg, p_r, jnp.asarray(q), jnp.asarray(qpos), flags=chunked,
+            **rkw)
+        _close(got, want)
 
 
 def test_moe_and_front_ends_still_raise():
     """MoE models build (qwen3-moe's scaled-down loss is finite, its aux
-    term positive); the audio and VLM front ends still raise, naming
-    their ROADMAP item, when built or fed."""
+    term positive); the audio and VLM front ends, which raised here until
+    they were ported, build and give a finite loss on ``make_batch``'s
+    frames or patches; a text model given a VLM config reads a patch
+    prefix."""
     moe = make_model(get_config("qwen3-moe-30b-a3b").scaled_down(),
                      device="cpu")
     loss, metrics = loss_fn(moe, {"tokens": torch.zeros((1, 4),
                                                         dtype=torch.long)})
     assert bool(torch.isfinite(loss)) and float(metrics["aux"].detach()) > 0
     for arch in ("whisper-tiny", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(get_config(arch).scaled_down(), device="cpu")
+        cfg = get_config(arch).scaled_down()
+        model = make_model(cfg, device="cpu")
+        batch = make_batch(cfg, 2, 12, torch.Generator().manual_seed(1))
+        assert set(batch) == {"tokens", "frames" if arch == "whisper-tiny"
+                              else "patches"}
+        loss, _ = loss_fn(model, batch)
+        assert bool(torch.isfinite(loss)) and float(loss.detach()) > 0
     model = make_model(get_config("tinyllama-1.1b").scaled_down(),
                        device="cpu")
-    model.cfg = dataclasses.replace(model.cfg, arch_type="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    model.cfg = dataclasses.replace(model.cfg, arch_type="vlm",
+                                    vision_prefix=3)
+    with pytest.raises(KeyError, match="patches"):
         loss_fn(model, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    loss, _ = loss_fn(model, {"tokens": torch.zeros((1, 4),
+                                                    dtype=torch.long),
+                              "patches": torch.zeros(1, 3,
+                                                     model.cfg.d_model)})
+    assert bool(torch.isfinite(loss))

@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import (active_param_count, decode_step, loss_fn,
                                 make_model, param_count, prefill)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
 REL = 1e-5

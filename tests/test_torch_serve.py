@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops as kops
@@ -29,6 +29,8 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.models import (decode_step, layers as L, loss_fn,
                                 make_model, param_count, prefill)
 from repro_torch.models.common import ParamInit, gelu
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RG = "recurrentgemma-2b"
 LLAMA = "tinyllama-1.1b"
@@ -288,9 +290,10 @@ def test_attention_prefill_and_decode_match_reference(ref, rg, kind, case):
 def test_chunked_attention_raises(ref, rg):
     """recurrentgemma's local attention block (layer 2) on the chunked
     route: a prefill of 2 x 80 tokens into a 40-slot ring and 3 decode
-    steps, against the reference's chunked route; the bidirectional
-    encoder kind still raises, naming its ROADMAP item (the front ends,
-    item 10 step 4)."""
+    steps, against the reference's chunked route; and the bidirectional
+    encoder kind, which raised here until the front ends were ported, on
+    the same block from a chunked caller (2 x 3 tokens) against the
+    reference's."""
     _, params, model = rg
     cfg = model.cfg
     rcfg = ref.configs.get_config(RG).scaled_down()
@@ -321,11 +324,17 @@ def test_chunked_attention_raises(ref, rg):
                 cfg, p_t, torch.from_numpy(xi), torch.from_numpy(pi).long(),
                 kind="local", cache=c_p, mode="decode", flags=fl)
             _close(y_p, y_r)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10 step 4"):
-        L.attention_apply(cfg, p_t, torch.zeros(1, 3, cfg.d_model),
-                          torch.zeros(1, 3, dtype=torch.int32),
-                          kind="encoder", flags={"attn_impl": "chunked"})
+    x = rng.normal(size=(2, 3, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(3, dtype=np.int32), (2, 3))
+    fl = {"attn_impl": "chunked"}
+    y_r, _ = ref.layers.attention_apply(
+        rcfg, p_r, jnp.asarray(x), jnp.asarray(pos), kind="encoder",
+        flags=fl)
+    with torch.no_grad():
+        y_p, _ = L.attention_apply(
+            cfg, p_t, torch.from_numpy(x), torch.from_numpy(pos.copy()),
+            kind="encoder", flags=fl)
+    _close(y_p, y_r)
 
 
 # ------------------------------------------------------------ models

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
@@ -41,6 +41,8 @@ from repro_torch.launch.steps import fl_round_arrays, make_train_step
 from repro_torch.models import make_model
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import SGDConfig, sgd_init, sgd_update
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AGGS = ("ideal", "ota", "digital")
