@@ -47,12 +47,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bytes', beside the SASS of its loop;
 4. design — the batched Sec.-IV solver (``core/sca_torch.py``, float64
    torch) on the card: Fig. 2's OTA design (N = 50) and digital design
-   (N = 10, T_max = 0.2 s) at B = 1, and ``benchmarks/design_bench.py``'s
-   fig2-sized sweep (N = 50, a 4 x 4 (omega_var, omega_bias) grid, B = 16)
-   for both families: cold and warm seconds (host clock to a
-   synchronise), the kernel launches and device ms of one more solve
-   under ``torch.profiler``, the objectives, which must agree with the
-   same solve on the CPU within 1e-6 relative (the digital bits
+   (N = 10, T_max = 0.2 s) at B = 1, cold (host clock to a
+   synchronise), and ``benchmarks/design_bench.py``'s fig2-sized sweep
+   (N = 50, a 4 x 4 (omega_var, omega_bias) grid, B = 16) for both
+   families, warm, then the kernel launches and device ms of one more
+   solve under ``torch.profiler`` (cut: the B = 1 solves are no longer
+   timed warm and profiled, nor the sweep cold; a solve is launch-bound
+   and takes as long at B = 1 as at B = 16, so one cold, one warm and one
+   profiled solve a family remain); every case's objectives must agree
+   with the same solve on the CPU within 1e-6 relative (the digital bits
    exactly); on the bench's quick grid (N = 20, 2 x 2) the card must
    match or beat the port's SciPy SCA oracle (4 iterations) within 1e-3;
 5. main path — the paper's experiments at full width through the port's
@@ -120,19 +123,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      from a profiled run every launch and the device ms per round; the
      layers' uniforms for a whole run made on the card equal the CPU's
      to the bit;
-     (b) ``sweep_fault`` (9 cells), ``sweep_participation`` (4 of its 8:
-     N left at the base's 50) and ``sweep_async`` (3 of its 27: the rate
-     spread and the discount left at the base's 3.0 and 0.8, since each
-     cell's designed weights take a co-design solve of 10-17 s on the
-     card) at ``quick=False`` widths, 20 of 100
-     rounds, through ``execute``: the seconds of data + kappa, of each
+     (b) ``sweep_fault`` (1 of its 9 cells: dropout 0.5 at the base's
+     path loss), ``sweep_participation`` (2 of its 8: S = 16 under the
+     uniform and the designed policy, N left at the base's 50) and
+     ``sweep_async`` (its base cell alone of 27: K = 4, rate spread 3.0,
+     discount 0.8, since each cell's designed weights take a co-design
+     solve of 9-17 s on the card) at ``quick=False`` widths
+     (``SWEEP_AXES``: one cell per distinct route), 20 of 100 rounds,
+     through ``execute``: the seconds of data + kappa, of each
      design group and of the schemes; each scheme's launches exactly as derived
      (the counts at 0 before each execute); finite losses, and Proposed
      OTA's falling in each cell or, where the step-size search lets it
      rise, the same cell on the CPU rising with it within 1e-5; each
      re-run all cached, with no launch and the same manifest but for
-     timings; then ``python -m repro_torch.api.cli run sweep_async --jobs
-     4`` (the quick spec) once;
+     timings; then ``python -m repro_torch.api.cli run SPEC.json --jobs
+     4`` once, SPEC the quick ``sweep_async`` cut to its buffer axis (2 of
+     its 8 cells, one a worker);
 8. mini-batches and ``rng="fast"`` (``fl.engine``, plain torch streams
    on the card; no kernel of their own):
      (c) ``rng="fast"`` through ``FLTrainer``, Fig. 2 ProposedOTA (N =
@@ -147,8 +153,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      selection rows of UQOS, QML and FedTOE bit for bit; the fast PS
      AWGN, f64 normals and fast |h| within the tests' 3 and 8 ulps;
      (b) ``fig2_batch(quick=False)`` (N = 50, 1000 samples a device, B
-     = 16, 64, 256 and full, 9 schemes) through ``execute`` cut to 30
-     rounds, as a phase 7 sweep (seconds of kappa, design and schemes,
+     = 16 of its 16, 64, 256 and full: the mini-batch route once, its
+     full batch being phase 6's ``fig2_ota_sc`` run; 9 schemes) through
+     ``execute`` cut to 20 rounds (30 before, cut for the time limit), as
+     a phase 7 sweep (seconds of kappa,
+     design and schemes,
      one ``ota_combine`` a round per OTA scheme and nothing else, the
      cached re-run), then the same sweep cut to Proposed OTA at kappa 3
      on the card against the CPU within 1e-5;
@@ -188,7 +197,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      parameters, 3,353,032,704 active), 4 x 512 prompt tokens and 32
      decoded on the einsum route after a 2-token warm-up, and
      "qwen3-moe-30b-a3b long prompt", 1 x 32,768 (prefill_32k's length,
-     its batch cut to 1) on the chunked route and 8 decoded: no kernel
+     its batch cut to 1) on the chunked route and 2 decoded, through the
+     first 16 of the 48 layers with all 48 on the card (cut from 48
+     layers and 8 decoded, for the time limit: the prefill took 34.7 s
+     and a decode step 1.6 s at full depth): no kernel
      launch, finite logits, tokens in range, at 4 x 512 the prefill run
      again giving the same bits; init seconds, tokens/s, peak memory, the
      experts layer 0 routed to, the share of assignments capacity
@@ -225,7 +237,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      on OTA (none of the row entry), 48 ``dithered_quantize`` a step on
      digital, nothing else; finite losses; the loss per step, steps/s,
      tokens/s and peak memory, and one more step under the profiler:
-     every launch on the card and the device time a step;
+     every launch on the card and the device time a step, read from the
+     profiler's raw events; these train steps, whisper-tiny's below and
+     every loss the tests take run with layer-group remat on, as the
+     reference's do;
    then whisper-tiny (the audio front end: 27 reference leaves, the
    encoder's and the cross blocks' among them), random weights:
      at full width and depth (bf16), the collective's kernel route
@@ -243,7 +258,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
      bit-equal, then the projection onto the ball of radius 10: the
      scale within 16 ulps (f32 reductions in other orders), parameters
      within 1 bf16 ulp;
-11. the kernel table, nvidia-smi's line, and the result line.
+11. layer-group rematerialisation and the three dense archs at full size
+   (bf16, random weights from seed 0; no new kernel):
+     "remat": tinyllama-1.1b at full width and depth, one client, one
+     loss and backward over 1 x 2,048 tokens, twice with ``remat=False``
+     (naming any gradient leaf the card does not repeat to the bit), then
+     with ``remat=True``: the loss bit-equal, every gradient leaf
+     bit-equal, or within the plain pass's own repeat gap on a leaf that
+     pass does not repeat; seconds and peak memory of each pass;
+     "<arch> serve" and "<arch> serve chunked" for llama3.2-1b (16
+     layers, d_model 2048, 32 heads / 8 KV heads of 64, d_ff 8192, vocab
+     128,256; 1,498,482,688 parameters) and qwen3-8b (36 layers, d_model
+     4096, 32 / 8 heads of 128, qk_norm, d_ff 12288, vocab 151,936;
+     8,190,735,360), 4 x 512 prompt tokens, and gemma3-4b (34 layers,
+     five local of window 1,024 to one global, d_model 2560, 8 / 4 heads
+     of 256, d_ff 10240, vocab 262,144; 4,551,013,888), 4 x 1,536 (past
+     its window), each with 32 decoded after a 2-token warm-up on the
+     einsum route, then on the chunked route: no kernel launch, finite
+     logits, tokens in range, the prefill run again giving the same bits;
+     init seconds, tokens/s, peak memory; then the same weights in f32 at
+     full depth: the chunked route's prefill logits within 1e-4 of the
+     einsum route's largest magnitude (in bf16 the routes differ by about
+     1e-2 of it, recorded: the chunked route rounds its unnormalised
+     probabilities to bf16);
+     "<arch> train ideal|ota|digital" for llama3.2-1b (12 reference
+     leaves) and gemma3-4b (113: five groups of six layers and four tail
+     layers) through the launcher's ``train``: 2 steps of 8 x 128 tokens
+     over 4 clients, exactly one ``ota_combine_keyed`` a leaf a step on
+     OTA and one ``dithered_quantize`` a client and leaf on digital,
+     nothing else; finite losses and parameters; step seconds, tokens/s,
+     peak memory; qwen3-8b's FL step does not fit one card (its
+     gradients, their stacked leaves and the f32 client sums beside 16.4
+     GB of weights) and waits for multi-card clients;
+12. the seconds of each numbered phase, the kernel table, nvidia-smi's
+   line, and the result line.
 """
 import dataclasses
 import gc
@@ -972,10 +1020,11 @@ def launches_of(fn):
     return kernels, copies, busy_ns / 1e6
 
 
-def design_case(family, specs, run, oracle_iters=None):
-    """Solve ``specs`` with the port's batched solver on the card: cold,
-    then warm (host clock to a synchronise), then once more under the
-    profiler; the same solve with ``device="cpu"`` must give the same
+def design_case(family, specs, run, oracle_iters=None, timed=False):
+    """Solve ``specs`` with the port's batched solver on the card, host
+    clock to a synchronise: cold, or with ``timed`` warm (the family has
+    solved once already, at B = 1) and once more under the profiler; the
+    same solve with ``device="cpu"`` must give the same
     objectives within DESIGN_CPU_RTOL and, for the digital family, the
     same finalized bits. With ``oracle_iters`` the case is the oracle
     check instead of a timing: one solve on the card, each point also
@@ -995,16 +1044,16 @@ def design_case(family, specs, run, oracle_iters=None):
     t0 = time.perf_counter()
     params, objs = batch(specs)
     torch.cuda.synchronize()
-    line["cold_s"] = time.perf_counter() - t0
-    if oracle_iters is None:
+    line["warm_s" if timed else "cold_s"] = time.perf_counter() - t0
+    if timed:
         t0 = time.perf_counter()
-        params, objs = batch(specs)
-        torch.cuda.synchronize()
-        line["warm_s"] = time.perf_counter() - t0
         kernels, copies, device_ms = launches_of(lambda: batch(specs))
         line.update(launches=kernels, copies=copies, device_ms=device_ms,
-                    device_idle=1.0 - device_ms / 1e3 / line["warm_s"])
+                    device_idle=1.0 - device_ms / 1e3 / line["warm_s"],
+                    profiled_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     cpu_params, cpu_objs = batch(specs, device="cpu")
+    line["cpu_s"] = time.perf_counter() - t0
     rel = float(np.max(np.abs(objs - cpu_objs) / np.abs(cpu_objs)))
     check(np.all(np.isfinite(objs)) and rel <= DESIGN_CPU_RTOL,
           f"design {run}: card vs CPU objectives differ by {rel} relative "
@@ -1036,17 +1085,20 @@ def design_case(family, specs, run, oracle_iters=None):
 
 def design_phase():
     """The batched Sec.-IV solver (``core/sca_torch.py``) on the card:
-    Fig. 2's two designs at B = 1, which the main path then runs on; the
-    design bench's fig2-sized sweep (N = 50, 4 x 4 weights, B = 16) for
-    both families; its quick grid (N = 20, 2 x 2, SCA oracle at 4
-    iterations) against the port's SciPy SCA oracle."""
+    Fig. 2's two designs at B = 1, which the main path then runs on,
+    cold; the design bench's fig2-sized sweep (N = 50, 4 x 4 weights, B =
+    16) for both families, warm and profiled (a solve is launch-bound and
+    takes as long at B = 1 as at B = 16, so one cold, one warm and one
+    profiled solve a family); its quick grid (N = 20, 2 x 2,
+    SCA oracle at 4 iterations) against the port's SciPy SCA oracle."""
     *_, ospec, _ = fig2_problem(50)
     *_, dspec = fig2_problem(10)
     (ota_p,) = design_case("ota", [ospec], "Fig. 2 OTA, N = 50")
     (dig_p,) = design_case("digital", [dspec],
                            "Fig. 2 digital, N = 10, T_max = 0.2 s")
     for family, specs in zip(("ota", "digital"), bench_specs(50, (4, 4))):
-        design_case(family, specs, "design bench sweep, N = 50, 4 x 4")
+        design_case(family, specs, "design bench sweep, N = 50, 4 x 4",
+                    timed=True)
     for family, specs in zip(("ota", "digital"), bench_specs(20, (2, 2))):
         design_case(family, specs, "design bench quick grid, N = 20, 2 x 2",
                     oracle_iters=4)
@@ -1899,24 +1951,37 @@ def layers_engine_runs(ota_p, dig_p, phase5_log):
     return launches
 
 
-#: axes each sweep's card run leaves at the base spec's value, for the
-#: time limit: every sweep_async cell solves its designed weights once
-#: (10-17 s on the card, launch-bound), so its rate spread and discount
-#: stay at 3.0 and 0.8, the base's, over K in {2, 4, 8}; sweep_participation
-#: keeps N = 50, the base's, over S in {8, 16} x {uniform, designed}
-SWEEP_FIXED = {"sweep_async": ("async_.rate_heterogeneity",
-                               "async_.staleness_discount"),
-               "sweep_participation": ("wireless.n_devices",)}
+#: each sweep's axes as the card runs them, for the time limit: a subset
+#: of each registered axis's values, one cell per distinct route and
+#: design group; an axis left out stays at the base spec's value. Every
+#: sweep_async cell and every designed sweep_participation cell solves its
+#: own co-design problem (9-17 s on the card, launch-bound), so
+#: sweep_async runs its base cell alone (K = 4, rate spread 3.0, discount
+#: 0.8; 27 cells registered) and sweep_participation S = 16 under the
+#: uniform and the designed policy (N = 50, the base's; 8 registered);
+#: sweep_fault's nine cells share one route and its path-loss axis makes
+#: the design groups, so it runs dropout 0.5 at path loss 2.2, the
+#: base's; fig2_batch runs B = 16 (its full-batch cell is phase 6's
+#: fig2_ota_sc run, and B = 64, 256 take the same route as 16)
+SWEEP_AXES = {
+    "sweep_fault": {"fault.dropout_prob": (0.5,)},
+    "sweep_participation": {"run.clients_per_round": (16,),
+                            "run.participation": ("uniform", "designed")},
+    "sweep_async": {},
+    "fig2_batch": {"run.batch_size": (16,)},
+}
 
 
 def sweep_cut(name, rounds=20):
-    """A registered sweep at ``quick=False`` widths, its rounds cut (and
-    the axes of ``SWEEP_FIXED`` left at the base's value)."""
+    """A registered sweep at ``quick=False`` widths, its rounds cut and
+    its axes cut to ``SWEEP_AXES[name]``'s values."""
     from repro_torch.api import scenarios
     from repro_torch.api.spec import SweepSpec
     sweep = scenarios.get(name, quick=False)
-    axes = {k: v for k, v in sweep.axes
-            if k not in SWEEP_FIXED.get(name, ())}
+    registered = dict(sweep.axes)
+    axes = SWEEP_AXES[name]
+    check(all(set(v) <= set(registered[k]) for k, v in axes.items()),
+          f"sweep {name}: cut axes {axes} not in {registered}")
     return SweepSpec(name=sweep.name, base=sweep.base.override(
         "run.rounds", rounds), axes=axes)
 
@@ -2022,29 +2087,40 @@ def sweep_run(name, spec):
 
 
 def sweep_cli():
-    """``python -m repro_torch.api.cli run sweep_async --jobs 4`` (the
-    quick spec) on the card, once: exit 0 and every cell computed. Four
-    workers share the card: each cell's co-design solve is bound by its
-    launches, so they overlap."""
+    """``python -m repro_torch.api.cli run SPEC.json --jobs 4`` on the
+    card, once, for the quick ``sweep_async`` cut to its buffer axis, the
+    rate spread and discount left at the base's 3.0 and 0.8 (2 of its 8
+    cells, one a worker): exit 0 and every cell computed. The workers
+    share the card: each cell's co-design solve is bound by its launches,
+    so they overlap."""
     import os
     import shutil
+    from repro_torch.api import scenarios
+    from repro_torch.api.spec import SweepSpec
     out = SCENARIO_OUT / "cli_sweep_async"
     shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    quick = scenarios.sweep_async(quick=True)
+    spec = SweepSpec(name=quick.name, base=quick.base, axes={
+        k: v for k, v in quick.axes if k == "async_.buffer_rounds"})
+    path = out.parent / "cli_sweep_async.json"
+    path.write_text(json.dumps(spec.to_dict()))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
     t0 = time.perf_counter()
     done = subprocess.run(
-        [sys.executable, "-m", "repro_torch.api.cli", "run", "sweep_async",
+        [sys.executable, "-m", "repro_torch.api.cli", "run", str(path),
          "--out", str(out), "--jobs", "4"], capture_output=True, text=True,
         env=env, timeout=600)
     check(done.returncode == 0,
           f"cli sweep_async: exit {done.returncode}\n{done.stdout[-2000:]}\n"
           f"{done.stderr[-4000:]}")
     summary = done.stdout.strip().splitlines()[-1]
-    check("8 computed" in summary, f"cli sweep_async: {summary}")
-    emit(phase="sweep_cli", run="sweep_async", seconds=time.perf_counter()
-         - t0, summary=summary)
+    check(f"{spec.n_points} computed" in summary,
+          f"cli sweep_async: {summary}")
+    emit(phase="sweep_cli", run="sweep_async", cells=spec.n_points,
+         seconds=time.perf_counter() - t0, summary=summary)
 
 
 def layers_phase(ota_p, dig_p, phase5_log):
@@ -2139,18 +2215,19 @@ def streams_vs_cpu(dig_ports):
 
 def batch_sweep_vs_cpu():
     """Part (b), the card against the CPU: ``fig2_batch(quick=False)``
-    cut to 30 rounds, Proposed OTA at one step size and kappa fixed at 3
+    cut to 20 rounds, Proposed OTA at one step size and kappa fixed at 3
     (the CPU's kappa estimate over 50,000 samples would take minutes),
     each cell within 1e-5."""
     from repro_torch.api import execute, scenarios
     from repro_torch.api.spec import SweepSpec
     sweep = scenarios.fig2_batch(quick=False)
     base = sweep.base
-    for path, value in (("run.rounds", 30), ("run.etas", (0.25,)),
+    for path, value in (("run.rounds", 20), ("run.etas", (0.25,)),
                         ("design.kappa", 3.0),
                         ("schemes", ("proposed_ota",))):
         base = base.override(path, value)
-    spec = SweepSpec(name="fig2_batch", base=base, axes=dict(sweep.axes))
+    spec = SweepSpec(name="fig2_batch", base=base,
+                     axes=SWEEP_AXES["fig2_batch"])
     t0 = time.perf_counter()
     card = execute(spec, save=False, force=True)
     card_s = time.perf_counter() - t0
@@ -2228,7 +2305,7 @@ def fast_runs(ota_p, dig_p):
 def streams_phase(ota_p, dig_p):
     """Phase 8: mini-batches and ``rng="fast"`` on the card: (c) the fast
     runs, (a) the streams against the CPU (the selection rows of (c)'s
-    schemes), (b) ``fig2_batch(quick=False)`` cut to 30 rounds through
+    schemes), (b) ``fig2_batch(quick=False)`` cut to 20 rounds through
     ``execute`` with its cached re-run, then a cut of it against the CPU.
     Returns the launches."""
     from repro_torch.fl.engine import scheme_port
@@ -2236,8 +2313,7 @@ def streams_phase(ota_p, dig_p):
     launches, selection = fast_runs(ota_p, dig_p)
     free_card()
     streams_vs_cpu([scheme_port(a) for a in selection])
-    for k, v in sweep_run("fig2_batch", sweep_cut("fig2_batch",
-                                                  rounds=30)).items():
+    for k, v in sweep_run("fig2_batch", sweep_cut("fig2_batch")).items():
         launches[k] = launches.get(k, 0) + v
     free_card()
     batch_sweep_vs_cpu()
@@ -2412,6 +2488,7 @@ KIMI = "kimi-k2-1t-a32b"
 QWEN_MOE_PARAMS = 30_532_122_624
 QWEN_MOE_ACTIVE = 3_353_032_704
 LONG_PROMPT = 32768                  # SHAPES["prefill_32k"].seq_len
+LONG_PROMPT_LAYERS = 16              # of 48, for the time limit
 
 
 class MoeRouting:
@@ -2632,8 +2709,10 @@ def moe_full():
     top-8 of d_ff 768, vocab 151,936; 30,532,122,624 bf16 parameters,
     3,353,032,704 active a token): 4 x 512 prompt tokens and 32 decoded
     on the einsum attention after a 2-token warm-up, then 1 x 32,768 on
-    the chunked attention and 8 decoded (the einsum route would need 137
-    GB of f32 scores a layer). No kernel is on this path."""
+    the chunked attention and 2 decoded through the first
+    ``LONG_PROMPT_LAYERS`` layers, the weights of all 48 staying on the
+    card (the einsum route would need 137 GB of f32 scores a layer). No
+    kernel is on this path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import SERVE_FLAGS, serve
@@ -2654,11 +2733,19 @@ def moe_full():
     line = moe_serve_run(model, f"{QWEN_MOE} serve", 4, 512, 32,
                          SERVE_FLAGS, repeat=True)
     emit(**line, params=n_params, active_params=n_active, init_s=init_s)
-    line = moe_serve_run(model, f"{QWEN_MOE} long prompt", 1, LONG_PROMPT,
-                         8, {**SERVE_FLAGS, "attn_impl": "chunked"},
-                         repeat=False)
+    layers = model.layers
+    model.layers = torch.nn.ModuleList(layers[:LONG_PROMPT_LAYERS])
+    model.cfg = dataclasses.replace(cfg, n_layers=LONG_PROMPT_LAYERS)
+    try:
+        line = moe_serve_run(model, f"{QWEN_MOE} long prompt", 1,
+                             LONG_PROMPT, 2,
+                             {**SERVE_FLAGS, "attn_impl": "chunked"},
+                             repeat=False)
+    finally:
+        model.layers, model.cfg = layers, cfg
     emit(**line, params=n_params, active_params=n_active,
-         shape="prefill_32k, batch cut from 32 to 1")
+         shape="prefill_32k, batch cut from 32 to 1",
+         layers_on_card=cfg.n_layers)
     del model
     free_card()
 
@@ -3167,11 +3254,17 @@ def train_small_vs_cpu():
     free_card()
 
 
-def train_full():
-    """The slice's main path: tinyllama-1.1b at full width and depth (bf16,
-    random weights from seed 0), 3 FL steps of 8 x 128 tokens over 4
-    clients under each aggregator through the launcher's ``train``; counts
-    read around each run."""
+def train_lines(arch, params, leaves, steps, profile=False):
+    """The arch's FL train step at full width and depth (bf16, random
+    weights from seed 0) through the launcher's ``train``, ``steps`` steps
+    of 8 x 128 tokens over 4 clients under each aggregator, remat on;
+    counts read around each run: exactly one ``ota_combine_keyed`` a
+    reference leaf a step on OTA (none of the row entry) and one
+    ``dithered_quantize`` a client and leaf on digital, nothing else;
+    finite losses and parameters; the loss per step, steps/s, tokens/s,
+    peak memory and, with ``profile``, one more step under the profiler
+    after the counts were read: every launch on the card and its device
+    time. Returns the counts."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -3180,9 +3273,10 @@ def train_full():
     from repro_torch.models import make_model, param_count
     sys.path.insert(0, str(ROOT / "scripts"))
     from profile_port import profiled
-    cfg = get_config(TINYLLAMA)
-    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": 12},
-                "digital": {"dithered_quantize": 48}}
+    cfg = get_config(arch)
+    n = TRAIN_RUN["n_clients"]
+    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": leaves},
+                "digital": {"dithered_quantize": n * leaves}}
     total = {}
     for agg in ("ideal", "ota", "digital"):
         free_card()
@@ -3192,51 +3286,61 @@ def train_full():
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = param_count(model)
-        check(n_params == TINYLLAMA_PARAMS
+        check(n_params == params
               and all(p.dtype == torch.bfloat16 for p in model.parameters()),
-              f"tinyllama-1.1b has {n_params} parameters")
+              f"{arch} has {n_params} parameters")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        log = train(model, aggregator=agg, steps=3, log=lambda s: None,
+        log = train(model, aggregator=agg, steps=steps, log=lambda s: None,
                     **TRAIN_RUN)
         seconds = time.perf_counter() - t0
         counts = kernels.launch_counts()
         for step_counts in log.launches:
             check(step_counts == {k: per_step[agg].get(k, 0)
                                   for k in step_counts},
-                  f"tinyllama {agg}: step launches {step_counts}")
-        check(counts == {k: 3 * per_step[agg].get(k, 0) for k in counts},
-              f"tinyllama {agg}: launches {counts}")
-        check(all(np.isfinite(log.losses)),
-              f"tinyllama {agg}: losses {log.losses}")
-        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
-              f"tinyllama {agg}: parameters not finite")
-        # one more step under the profiler, after the counts were read:
-        # every launch on the card and its device time, a step
-        by_family, step_launches, busy_us, prof_wall = profiled(
-            lambda: train(model, aggregator=agg, steps=1, log=lambda s: None,
-                          **TRAIN_RUN))
+                  f"{arch} {agg}: step launches {step_counts}")
+        check(counts == {k: steps * per_step[agg].get(k, 0) for k in counts},
+              f"{arch} {agg}: launches {counts}")
+        check(all(np.isfinite(log.losses))
+              and all(bool(torch.isfinite(p).all())
+                      for p in model.parameters()),
+              f"{arch} {agg}: losses {log.losses} or parameters not finite")
+        extra = {}
+        if profile:
+            by_family, step_launches, busy_us, prof_wall = profiled(
+                lambda: train(model, aggregator=agg, steps=1,
+                              log=lambda s: None, **TRAIN_RUN))
+            extra = dict(
+                step_launches_profiled=step_launches,
+                step_device_ms_profiled=busy_us / 1e3,
+                step_wall_ms_profiled=prof_wall * 1e3,
+                step_device_ms_by_family={k: v / 1e3 for k, v in sorted(
+                    by_family.items(), key=lambda kv: -kv[1])})
         tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
-        emit(phase="main_path", run=f"tinyllama-1.1b train {agg}",
-             arch=TINYLLAMA, n_layers=cfg.n_layers, params=n_params,
-             dtype="bfloat16", aggregator=agg, clients=4, steps=3,
-             batch=8, seq=128, launches=counts, loss=log.losses,
-             step_s=log.step_s, seconds=seconds, init_s=init_s,
-             steps_per_s=3 / sum(log.step_s),
-             tokens_per_s=3 * tokens / sum(log.step_s),
-             steady_steps_per_s=2 / sum(log.step_s[1:]),
-             steady_tokens_per_s=2 * tokens / sum(log.step_s[1:]),
-             step_launches_profiled=step_launches,
-             step_device_ms_profiled=busy_us / 1e3,
-             step_wall_ms_profiled=prof_wall * 1e3,
-             step_device_ms_by_family={k: v / 1e3 for k, v in sorted(
-                 by_family.items(), key=lambda kv: -kv[1])},
-             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(phase="main_path", run=f"{arch} train {agg}", arch=arch,
+             n_layers=cfg.n_layers, params=n_params, leaves=leaves,
+             dtype="bfloat16", aggregator=agg, clients=n, steps=steps,
+             batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"], remat=True,
+             launches=counts, loss=log.losses, step_s=log.step_s,
+             seconds=seconds, init_s=init_s,
+             steps_per_s=steps / sum(log.step_s),
+             tokens_per_s=steps * tokens / sum(log.step_s),
+             steady_steps_per_s=(steps - 1) / sum(log.step_s[1:]),
+             steady_tokens_per_s=(steps - 1) * tokens / sum(log.step_s[1:]),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         del model
     free_card()
     return total
+
+
+def train_full():
+    """The slice's main path: tinyllama-1.1b at full width and depth, 3
+    FL steps under each aggregator (12 keyed epilogues, or 48 quantizer
+    launches, a step), each with one more step profiled."""
+    return train_lines(TINYLLAMA, TINYLLAMA_PARAMS, 12, steps=3,
+                       profile=True)
 
 
 WHISPER_LEAVES = 27
@@ -3418,6 +3522,212 @@ def whisper_train_phase():
     return counts
 
 
+# ------------------------------------------------ remat and the dense archs
+
+REMAT_SEQ = 2048
+# each dense arch at full size: its parameters, reference leaves (one
+# keyed epilogue a leaf on OTA, one quantizer a client and leaf on
+# digital), its serve prompt (gemma3-4b's 1,536 go past its 1,024-token
+# window) and whether its FL step fits one card (qwen3-8b's does not:
+# PERF.md §4)
+DENSE = {
+    "llama3.2-1b": dict(params=1_498_482_688, leaves=12, prompt_len=512,
+                        train=True),
+    "qwen3-8b": dict(params=8_190_735_360, leaves=14, prompt_len=512,
+                     train=False),
+    "gemma3-4b": dict(params=4_551_013_888, leaves=113, prompt_len=1536,
+                      train=True),
+}
+
+
+def remat_pass(model, batch, remat):
+    """One loss and backward of ``model`` on ``batch`` with ``forward``'s
+    ``remat`` set: (loss, {name: gradient}, seconds, peak bytes)."""
+    import functools
+    import torch
+    from repro_torch.models import loss_fn
+    model.zero_grad(set_to_none=True)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model.forward = functools.partial(type(model).forward, model,
+                                      remat=remat)
+    t0 = time.perf_counter()
+    try:
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        del model.forward
+    seconds = time.perf_counter() - t0
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, seconds, torch.cuda.max_memory_allocated()
+
+
+def remat_line():
+    """tinyllama-1.1b at full width and depth (bf16, seed 0), one client,
+    one loss and backward over 1 x 2,048 tokens: twice with ``remat=False``
+    (which gradient leaves the card repeats to the bit), then once with
+    ``remat=True``: the loss bit-equal, and every gradient leaf bit-equal
+    to the first pass, or, on a leaf the plain pass itself does not
+    repeat, within its own repeat's largest gap; the seconds and peak
+    memory of each pass."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_batch, make_model
+    cfg = get_config(TINYLLAMA)
+    model = make_model(cfg, seed=0)
+    batch = make_batch(cfg, 1, REMAT_SEQ,
+                       torch.Generator(device="cuda").manual_seed(13))
+    kernels.reset_launch_counts()
+    passes = [remat_pass(model, batch, r) for r in (False, False, True)]
+    counts = kernels.launch_counts()
+    (loss0, g0, s0, p0), (loss1, g1, s1, p1), (loss2, g2, s2, p2) = passes
+
+    def gaps(a, b):
+        return {n: float((a[n].float() - b[n].float()).abs().max())
+                for n in a if not torch.equal(a[n], b[n])}
+
+    repeat, remat = gaps(g1, g0), gaps(g2, g0)
+    check(sum(counts.values()) == 0, f"remat: kernels launched {counts}")
+    check(bool(torch.isfinite(loss0)) and torch.equal(loss1, loss0)
+          and torch.equal(loss2, loss0),
+          f"remat: losses {float(loss0)}, {float(loss1)}, {float(loss2)}")
+    check(all(n in repeat and v <= repeat[n] for n, v in remat.items()),
+          f"remat: gradient leaves {remat} beyond the plain pass's own "
+          f"repeat {repeat}")
+    check(all(bool(torch.isfinite(g).all()) for g in g2.values()),
+          "remat: gradients not finite")
+    size = len(cfg.layer_pattern)
+    emit(phase="remat", arch=TINYLLAMA, n_layers=cfg.n_layers,
+         groups=cfg.n_layers // size, dtype="bfloat16", batch=1,
+         seq=REMAT_SEQ, loss=float(loss0), loss_bit_equal=True,
+         grad_leaves=len(g0), plain_repeat_differing=repeat,
+         remat_differing=remat, grads_bit_equal=not remat,
+         seconds_plain=[s0, s1], seconds_remat=s2,
+         peak_memory_gb_plain=[p0 / 1e9, p1 / 1e9],
+         peak_memory_gb_remat=p2 / 1e9)
+    del model, passes, g0, g1, g2
+    free_card()
+
+
+CHUNKED_REL = 1e-4            # the chunked route against einsum's, f32
+
+
+def dense_serve(arch):
+    """The dense arch at full width and depth (bf16, random weights from
+    seed 0), 4 requests of ``DENSE[arch]``'s prompt and 32 decoded
+    tokens after a 2-token warm-up, on the einsum route and then on the
+    chunked route, the counts set to 0 just before each and read just
+    after: no kernel launch, finite logits, tokens in range, the prefill
+    run again giving the same bits. Then the gate of ``chunked_vs_einsum``
+    at full width and depth: the same weights in f32, the two routes'
+    prefill logits on the same prompt within 1e-4 of the einsum route's
+    largest magnitude. In bf16 the routes differ by about 1e-2 of it (the
+    chunked route rounds its probabilities to bf16 before dividing by
+    their sum, einsum after), which the chunked line records. Returns the
+    counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVE_FLAGS, serve
+    from repro_torch.models import make_model, param_count, prefill
+    cell = DENSE[arch]
+    cfg = get_config(arch)
+    prompt = cell["prompt_len"]
+    free_card()
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == cell["params"] and model.embed.dtype == torch.bfloat16,
+          f"{arch} has {n_params} parameters")
+    total, lines, logits = {}, {}, {}
+    for route in ("einsum", "chunked"):
+        flags = {**SERVE_FLAGS, "attn_impl": route}
+        name = f"{arch} serve" + (" chunked" if route == "chunked" else "")
+        serve(model, batch=4, prompt_len=prompt, tokens=2, flags=flags)
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = serve(model, batch=4, prompt_len=prompt, tokens=32,
+                    keep_logits=True, flags=flags)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(sum(counts.values()) == 0,
+              f"{name}: the dense path launched kernels {counts}")
+        check(out.generated.shape == (4, 33)
+              and bool(((out.generated >= 0)
+                        & (out.generated < cfg.vocab_size)).all())
+              and bool(torch.isfinite(out.prefill_logits).all())
+              and bool(torch.isfinite(out.decode_logits).all()),
+              f"{name}: logits not finite or tokens out of range")
+        again, _, _ = prefill(model, {"tokens": out.prompt}, prompt + 33,
+                              flags)
+        gap = float((again.float() - out.prefill_logits.float()).abs().max())
+        check(torch.equal(again, out.prefill_logits),
+              f"{name}: the prefill run twice gives other logits (max gap "
+              f"{gap})")
+        lines[route] = dict(
+            phase="main_path", run=name, arch=arch, n_layers=cfg.n_layers,
+            params=n_params, dtype="bfloat16", attn_impl=route,
+            launches=counts, batch=4, prompt_len=prompt, tokens=32,
+            window=cfg.window_size if "local" in cfg.layer_pattern
+            else None, init_s=init_s, prefill_s=out.prefill_s,
+            decode_s=out.decode_s,
+            prefill_tokens_per_s=out.prefill_tokens_per_s,
+            decode_tokens_per_s=out.decode_tokens_per_s,
+            peak_memory_gb=peak / 1e9, prefill_repeat_bit_equal=True,
+            first_tokens=out.generated[0, :8].tolist())
+        logits[route] = out.prefill_logits
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if route == "einsum":
+            emit(**lines[route])
+        tokens = out.prompt
+        del out, again
+    bf16_gap = logits_gap(logits["chunked"], logits["einsum"])
+    del model, logits
+    free_card()
+    model = make_model(dataclasses.replace(cfg, dtype=torch.float32), seed=0)
+    f32 = {route: prefill(model, {"tokens": tokens}, prompt + 33,
+                          {**SERVE_FLAGS, "attn_impl": route})[0]
+           for route in ("einsum", "chunked")}
+    f32_gap = logits_gap(f32["chunked"], f32["einsum"])
+    check(f32_gap <= CHUNKED_REL and bool(torch.isfinite(
+        f32["chunked"]).all()),
+          f"{arch} f32: chunked vs einsum prefill logits differ by "
+          f"{f32_gap} of the largest")
+    emit(**lines["chunked"], bf16_prefill_rel_gap_to_einsum=bf16_gap,
+         f32_prefill_rel_gap_to_einsum=f32_gap, limit_f32=CHUNKED_REL)
+    del model, f32
+    free_card()
+    return total
+
+
+def dense_train(arch):
+    """The dense arch's FL train step at full size, 2 steps under each
+    aggregator, no profiled step (``train_lines``)."""
+    cell = DENSE[arch]
+    return train_lines(arch, cell["params"], cell["leaves"], steps=2)
+
+
+def dense_phase():
+    """Phase 10's remat and dense-arch lines; returns the main-path
+    counts of their serve and train runs."""
+    remat_line()
+    counts = {}
+    for arch, cell in DENSE.items():
+        runs = [dense_serve(arch)] + ([dense_train(arch)] if cell["train"]
+                                      else [])
+        for c in runs:
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3435,7 +3745,9 @@ def main() -> int:
     from repro_torch.fl import FLEngine, FLTrainer
     from repro_torch.kernels import build
     t_start = time.perf_counter()
+    phase_start = {}                # numbered phase: its start
 
+    phase_start[1] = time.perf_counter()
     # 1. device
     resolve_device()
     name = torch.cuda.get_device_name(0)
@@ -3443,6 +3755,7 @@ def main() -> int:
     emit(phase="device", name=name, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
+    phase_start[2] = time.perf_counter()
     # 2. build
     t0 = time.perf_counter()
     logs = build.build()
@@ -3469,6 +3782,7 @@ def main() -> int:
             "packed_weighted_sum_kernelIdLi8ELb1E", "DMUL"))
     emit(phase="sass", **sass)
 
+    phase_start[3] = time.perf_counter()
     # 3. kernels against their plain versions
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     ota_rows, quant_rows = {}, {}
@@ -3643,11 +3957,13 @@ def main() -> int:
             floor["floor_ms_at_max_clock"], "operations")
     keyed_beyond_2_31()
 
+    phase_start[4] = time.perf_counter()
     # 4. the design solver on the card; Fig. 2's designs feed the main path
     ota_p, dig_p = design_phase()
     designed = (ota_p, dig_p)
     free_card()
 
+    phase_start[5] = time.perf_counter()
     # 5. the main paths: Fig. 2 and Fig. 3 at full width
     launches, main_logs = {}, {}
 
@@ -3739,6 +4055,7 @@ def main() -> int:
     fig3_matches_cpu()
     free_card()
 
+    phase_start[6] = time.perf_counter()
     # 6. the scenario layer: Fig. 2 and Fig. 3 as ScenarioSpecs through
     # execute on the card, each re-run from its cache; the card against
     # the CPU; the command line
@@ -3746,6 +4063,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     free_card()
 
+    phase_start[7] = time.perf_counter()
     # 7. the fault, participation and async layers: the main path's runs
     # under each, then the three robustness sweeps through execute
     for k, v in layers_phase(*designed,
@@ -3753,12 +4071,14 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     free_card()
 
+    phase_start[8] = time.perf_counter()
     # 8. mini-batches and rng="fast": the fast runs beside replay, the
     # streams on the card against the CPU, fig2_batch through execute
     for k, v in streams_phase(*designed).items():
         launches[k] = launches.get(k, 0) + v
     free_card()
 
+    phase_start[9] = time.perf_counter()
     # 9. serve falcon-mamba-7b, then recurrentgemma-2b: the kernel against
     # its plain version at full width cut to one pattern, the card against
     # the CPU at the reduced sizes, then the main path at full width and
@@ -3782,6 +4102,7 @@ def main() -> int:
     for k, v in front_ends_serve().items():
         launches[k] = launches.get(k, 0) + v
 
+    phase_start[10] = time.perf_counter()
     # 10. FL-LM training: the collective's kernel route against its plain
     # route at 2 layers of tinyllama's width, the scaled-down train step
     # on the card against the CPU, then the main path at full width and
@@ -3796,7 +4117,16 @@ def main() -> int:
     for k, v in whisper_train_phase().items():
         launches[k] = launches.get(k, 0) + v
 
-    # 11. the kernel table at the main path's shapes and types (launches:
+    phase_start[11] = time.perf_counter()
+    # 11. layer-group remat on tinyllama-1.1b at full size, then the three
+    # dense archs at full width and depth: llama3.2-1b, qwen3-8b and
+    # gemma3-4b served on both attention routes, llama3.2-1b and gemma3-4b
+    # FL-trained under each aggregator
+    for k, v in dense_phase().items():
+        launches[k] = launches.get(k, 0) + v
+
+    phase_start[12] = time.perf_counter()
+    # 12. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at
@@ -3847,6 +4177,10 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
             dtype=row["dtype"]))
+    ends = sorted(phase_start.items()) + [(None, time.perf_counter())]
+    emit(phase="phase_seconds", seconds={
+        str(n): end - start for (n, start), (_, end) in zip(ends, ends[1:])},
+         before_phase_1=phase_start[1] - T_IMPORT)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

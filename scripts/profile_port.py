@@ -72,31 +72,31 @@ def family(name: str) -> str:
 
 
 def profiled(fn, kernels=None):
-    """Run ``fn()`` under the profiler; (device time by family in us,
-    launches, busy us, host wall seconds to a synchronise). A dict passed
-    as ``kernels`` receives each kernel's (device us, launches) by name."""
+    """Run ``fn()`` under the profiler (the card's activity only); (device
+    time by family in us, launches, busy us, host wall seconds to a
+    synchronise), read from the profiler's raw events: building its
+    per-op tables took tens of seconds for a digital train step's 72,000
+    launches. A dict passed as ``kernels`` receives each kernel's (device
+    us, launches) by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_family, launches, busy_us = {}, 0, 0.0
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if evt.device_type != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        fam = family(evt.key)
+        name, dev_us = evt.name(), evt.duration_ns() / 1e3
+        fam = family(name)
         by_family[fam] = by_family.get(fam, 0.0) + dev_us
         if kernels is not None:
-            us, n = kernels.get(evt.key, (0.0, 0))
-            kernels[evt.key] = (us + dev_us, n + evt.count)
-        launches += evt.count
+            us, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (us + dev_us, n + 1)
+        launches += 1
         busy_us += dev_us
     if busy_us == 0:
         raise SystemExit("profiler recorded no device time")

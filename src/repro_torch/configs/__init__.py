@@ -2,10 +2,11 @@
 ``repro.configs``).
 
 The ten configs are the reference's, as pure data; each cites its source
-(HF model card or arXiv). The port builds the Mamba, dense and RG-LRU
-models from them (falcon-mamba-7b, the llama family, qwen3-8b, gemma3-4b,
-recurrentgemma-2b); the MoE, audio and VLM configs raise
-``NotImplementedError`` when a model is built from them.
+(HF model card or arXiv). The port builds a model from every one of them:
+Mamba (falcon-mamba-7b), dense (the llama family, qwen3-8b, gemma3-4b),
+RG-LRU (recurrentgemma-2b), MoE (qwen3-moe-30b-a3b, kimi-k2-1t-a32b), audio
+(whisper-tiny) and VLM (internvl2-2b). Only the expert-parallel MoE route
+and multi-card training wait for more than one card.
 """
 from __future__ import annotations
 

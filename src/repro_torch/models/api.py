@@ -120,7 +120,8 @@ def loss_fn(model: Transformer, batch: dict, flags: Optional[dict] = None):
     layers' summed load-balance term (``repro.models.api.loss_fn``), over
     the text positions: a VLM's logits lose the patch prefix first, so a
     VLM batch of one text token has no target and a loss of exactly 0,
-    as the reference's. Returns (loss, {"ce": ce, "aux": aux})."""
+    as the reference's. The backbone runs with ``remat`` on, as the
+    reference's does. Returns (loss, {"ce": ce, "aux": aux})."""
     x, positions, mask, memory = _embed_inputs(model, batch)
     hidden, _, aux = model(x, positions, mode="train", flags=flags,
                            memory=memory)

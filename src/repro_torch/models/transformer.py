@@ -16,7 +16,8 @@ reference's ``enc_groups/b0/...``, stacked over ``encoder_layers``) with
 Caches are a list with one dict per layer, keyed as the reference's:
 ``{"attn": ...}``, ``{"mamba": ...}`` or ``{"rec": ...}``.
 ``repro_torch.interop`` maps these names to the reference's stacked leaves
-and back.
+and back. In train mode ``forward`` checkpoints each group of layers (one
+pass of the pattern, the reference's scan step) unless ``remat=False``.
 
 Mamba-1 layers (falcon-mamba), dense layers (global and local attention
 with the SwiGLU MLP: the llama family, gemma3's pattern), MoE layers
@@ -32,6 +33,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from . import layers as L
 from .common import ModelConfig, ParamInit, ParamModule, rms_norm
@@ -192,25 +194,59 @@ class Transformer(nn.Module):
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
     def forward(self, x, positions=None, *, mode="train", caches=None,
-                flags=None, memory=None):
+                flags=None, memory=None, remat=True):
         """Backbone over embeddings x (B, S, d) at ``positions`` (B, S)
         (attention layers; Mamba and RG-LRU layers read none), the
         decoder layers' cross-attention over the encoder ``memory``.
         Returns (hidden, caches, aux): aux sums the MoE layers'
-        load-balance terms in f32, layer by layer (0 without MoE
-        layers)."""
+        load-balance terms in f32, layer by layer (0 without MoE layers;
+        under remat each group's sum is added, the same order for the
+        one-layer patterns of the MoE archs).
+
+        ``remat`` (train mode only, as the reference's ``jax.checkpoint``
+        of its scan body): each of the ``n_layers // len(layer_pattern)``
+        groups, one pass of the pattern, runs as one non-reentrant
+        ``torch.utils.checkpoint.checkpoint`` call, which keeps only the
+        group's inputs for the backward pass and runs the group again
+        there; the tail layers run as they are. The recompute repeats the
+        forward's ops, so the loss and gradients keep their bits."""
+        cfg = self.cfg
         new_caches = None if caches is None else []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, layer in enumerate(self.layers):
-            x, nc, aux = layer(self.cfg, x, positions,
-                               cache=None if caches is None else caches[i],
-                               mode=mode, flags=flags, memory=memory)
+        n_grouped = 0
+        if remat and mode == "train":
+            size = len(cfg.layer_pattern)
+            n_grouped = cfg.n_layers // size * size
+            for g in range(0, n_grouped, size):
+                x, aux = checkpoint.checkpoint(
+                    self._group, x, positions, memory, g, g + size, flags,
+                    use_reentrant=False)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            if new_caches is not None:      # a train layer's cache is kept
+                new_caches.extend(caches[:n_grouped])
+        for i in range(n_grouped, cfg.n_layers):
+            x, nc, aux = self.layers[i](
+                cfg, x, positions,
+                cache=None if caches is None else caches[i], mode=mode,
+                flags=flags, memory=memory)
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:
                 new_caches.append(nc if nc is not None else caches[i])
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return x, new_caches, aux_total
+
+    def _group(self, x, positions, memory, start, stop, flags):
+        """Train-mode layers [start, stop) in order: (x, the sum of their
+        MoE aux terms in layer order, None without one)."""
+        aux_sum = None
+        for layer in self.layers[start:stop]:
+            x, _, aux = layer(self.cfg, x, positions, mode="train",
+                              flags=flags, memory=memory)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x, aux_sum
 
     def logits(self, hidden):
         return hidden @ self.lm_head

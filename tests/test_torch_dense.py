@@ -219,23 +219,35 @@ def test_dense_layers_have_attention_and_mlp_only(ref):
     assert all(p.requires_grad for p in model.parameters())
 
 
-def test_tinyllama_parameter_count(ref):
-    """1,100,048,384 bf16 parameters, counted on the meta device, as the
-    reference's abstract params count them; 12 reference leaves."""
-    cfg = get_config("tinyllama-1.1b")
-    model = make_model(cfg, seed=None, device="meta")
-    theirs = ref.api.make_model(ref.configs.get_config("tinyllama-1.1b"))
-    assert param_count(model) == 1_100_048_384
-    assert param_count(model) == sum(
-        int(np.prod(x.shape))
-        for x in ref.jax.tree.leaves(theirs.abstract_params()))
+# full size on the meta device: parameters, reference leaves, largest leaf
+FULL_SIZE = {
+    "tinyllama-1.1b": (1_100_048_384, 12, 253_755_392),
+    "llama3.2-1b": (1_498_482_688, 12, 268_435_456),
+    "qwen3-8b": (8_190_735_360, 14, 1_811_939_328),
+    "gemma3-4b": (4_551_013_888, 113, 671_088_640),
+}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dense_parameter_count(ref, arch):
+    """The dense archs' bf16 parameters at full size, counted on the meta
+    device, as the reference's abstract params count them; their
+    reference leaves (gemma3-4b: 5 groups of 6 layers and 4 tail layers)
+    and the largest leaf."""
+    n_params, n_leaves, largest = FULL_SIZE[arch]
+    model = make_model(get_config(arch), seed=None, device="meta")
+    theirs = ref.jax.tree.leaves(ref.api.make_model(
+        ref.configs.get_config(arch)).abstract_params())
+    assert param_count(model) == n_params
+    assert param_count(model) == sum(int(np.prod(x.shape)) for x in theirs)
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
     leaves = interop.reference_leaves(model)
-    assert len(leaves) == 12
-    assert max(int(np.prod(lf.shape)) for lf in leaves) == 253_755_392
+    assert len(leaves) == len(theirs) == n_leaves
+    assert [lf.shape for lf in leaves] == [tuple(x.shape) for x in theirs]
+    assert max(int(np.prod(lf.shape)) for lf in leaves) == largest
 
 
-def test_dense_serve_raises_not_implemented(ref):
+def test_chunked_route_matches_einsum_and_front_end_blocks(ref):
     """Dense models serve on both attention routes: the chunked (online
     softmax) prefill and decode of scaled-down tinyllama equal the einsum
     route's within the tolerance (a prompt of 40, then one decode step
@@ -283,7 +295,7 @@ def test_dense_serve_raises_not_implemented(ref):
         _close(got, want)
 
 
-def test_moe_and_front_ends_still_raise():
+def test_moe_and_front_ends_build_with_finite_loss():
     """MoE models build (qwen3-moe's scaled-down loss is finite, its aux
     term positive); the audio and VLM front ends, which raised here until
     they were ported, build and give a finite loss on ``make_batch``'s
