@@ -290,7 +290,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
      peak memory; qwen3-8b's FL step does not fit one card (its
      gradients, their stacked leaves and the f32 client sums beside 16.4
      GB of weights) and waits for multi-card clients;
-12. the seconds of each numbered phase, the kernel table, nvidia-smi's
+12. the cost report (``repro_torch.launch.analysis``, no kernel, no
+   weights on the card): phase 11's cells reckoned on the meta device,
+   one "cost_report" line each with the reckoned peak beside the card's
+   reading, the matmul FLOPs by dtype, the bytes accessed and the three
+   time terms on an H100:
+     "<arch> serve" for the three dense archs: 4 x the prompt prefilled
+     into caches of prompt + 33 slots and one decode step on the einsum
+     route, the peak within 5% of the einsum serve line's; for
+     llama3.2-1b also the prefill's matmul FLOPs, equal to what
+     ``torch.utils.flop_counter.FlopCounterMode`` counted over the same
+     prefill on the card in phase 11;
+     "remat": the remat line's three passes (the second beside the
+     first's gradients, the third beside both passes'), each peak within
+     10% of the card's;
+13. the seconds of each numbered phase, the kernel table, nvidia-smi's
    line, and the result line.
 """
 import dataclasses
@@ -3571,7 +3585,9 @@ def remat_line():
     ``remat=True``: the loss bit-equal, and every gradient leaf bit-equal
     to the first pass, or, on a leaf the plain pass itself does not
     repeat, within its own repeat's largest gap; the seconds and peak
-    memory of each pass."""
+    memory of each pass. Returns the three peaks in bytes (each pass after
+    the first runs beside the earlier passes' gradients, which the list
+    of passes keeps)."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -3610,6 +3626,7 @@ def remat_line():
          peak_memory_gb_remat=p2 / 1e9)
     del model, passes, g0, g1, g2
     free_card()
+    return [p0, p1, p2]
 
 
 CHUNKED_REL = 1e-4            # the chunked route against einsum's, f32
@@ -3627,7 +3644,10 @@ def dense_serve(arch):
     largest magnitude. In bf16 the routes differ by about 1e-2 of it (the
     chunked route rounds its probabilities to bf16 before dividing by
     their sum, einsum after), which the chunked line records. Returns the
-    counts."""
+    counts and the reading phase 12 holds its reckoning to: the einsum
+    run's peak bytes and, for ``FLOPS_ARCH``, the matmul FLOPs
+    ``FlopCounterMode`` counts over one more einsum prefill of the same
+    prompt."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -3686,6 +3706,13 @@ def dense_serve(arch):
             total[k] = total.get(k, 0) + v
         if route == "einsum":
             emit(**lines[route])
+            reading = {"peak_bytes": peak}
+            if arch == FLOPS_ARCH:
+                from torch.utils.flop_counter import FlopCounterMode
+                with FlopCounterMode(display=False) as fc:
+                    prefill(model, {"tokens": out.prompt}, prompt + 33,
+                            flags)
+                reading["prefill_matmul_flops"] = fc.get_total_flops()
         tokens = out.prompt
         del out, again
     bf16_gap = logits_gap(logits["chunked"], logits["einsum"])
@@ -3704,7 +3731,7 @@ def dense_serve(arch):
          f32_prefill_rel_gap_to_einsum=f32_gap, limit_f32=CHUNKED_REL)
     del model, f32
     free_card()
-    return total
+    return total, reading
 
 
 def dense_train(arch):
@@ -3715,17 +3742,143 @@ def dense_train(arch):
 
 
 def dense_phase():
-    """Phase 10's remat and dense-arch lines; returns the main-path
-    counts of their serve and train runs."""
-    remat_line()
+    """Phase 11's remat and dense-arch lines; returns the main-path
+    counts of their serve and train runs, and the readings phase 12
+    holds its reckonings to ({"remat": the three peaks, arch: the serve
+    reading})."""
+    readings = {"remat": remat_line()}
     counts = {}
     for arch, cell in DENSE.items():
-        runs = [dense_serve(arch)] + ([dense_train(arch)] if cell["train"]
-                                      else [])
+        served, readings[arch] = dense_serve(arch)
+        runs = [served] + ([dense_train(arch)] if cell["train"] else [])
         for c in runs:
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
-    return counts
+    return counts, readings
+
+
+SERVE_PEAK_REL = 0.05         # reckoned serve peak against the card's
+REMAT_PEAK_REL = 0.10         # reckoned remat-line peaks against the card's
+FLOPS_ARCH = "llama3.2-1b"    # whose prefill FLOPs are counted on both
+
+
+def reckon_serve(arch, reading):
+    """Phase 12's serve cell: ``dense_serve``'s einsum run reckoned on the
+    meta device (random-weight shapes, nothing on the card): a prefill of
+    4 x the prompt into caches of prompt + 33 slots, then one decode
+    step, as ``serve`` runs them. The reckoned peak within
+    ``SERVE_PEAK_REL`` of the card's; for ``FLOPS_ARCH`` the prefill's
+    matmul FLOPs equal to ``FlopCounterMode``'s on the card."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis
+    from repro_torch.launch.serve import SERVE_FLAGS
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import make_model
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    prompt = DENSE[arch]["prompt_len"]
+    cache_len = prompt + 33
+    flags = {**SERVE_FLAGS, "attn_impl": "einsum"}
+    model = make_model(cfg, seed=None, device="meta")
+    prefill = make_prefill_step(model, batch=4, seq=prompt,
+                                cache_len=cache_len, flags=flags)
+    decode = make_decode_step(model, batch=4, cache_len=cache_len,
+                              flags=flags)
+    inputs = {"tokens": torch.empty(4, prompt, dtype=torch.int64,
+                                    device="meta")}
+    position = torch.empty(4, dtype=torch.int64, device="meta")
+
+    def run():
+        logits, caches, memory = prefill(inputs)
+        token = torch.argmax(logits, -1)[:, None]
+        return decode(token, position, caches, memory)
+
+    before = kernels.launch_counts()
+    out, counter, live = analysis.reckon(
+        run, (list(model.parameters()), inputs))
+    check(kernels.launch_counts() == before,
+          f"{arch} reckoning launched kernels")
+    peak, read = live.peak, reading["peak_bytes"]
+    gap = (peak - read) / read
+    check(abs(gap) <= SERVE_PEAK_REL,
+          f"{arch} serve: reckoned peak {peak / 1e9} GB against "
+          f"{read / 1e9} GB read, {gap:+.4f}")
+    line = dict(phase="cost_report", cell=f"{arch} serve", batch=4,
+                prompt_len=prompt, decode_steps=1,
+                reckoned_peak_gb=peak / 1e9, read_peak_gb=read / 1e9,
+                rel_gap=gap, limit=SERVE_PEAK_REL,
+                memory=live.memory_summary(out),
+                cost=analysis.cost_summary(counter),
+                matmul_flops_by_dtype=dict(counter.matmul_flops),
+                time_s=analysis.time_terms(counter))
+    if "prefill_matmul_flops" in reading:
+        _, pre, _ = analysis.reckon(lambda: prefill(inputs), ())
+        flops = sum(pre.matmul_flops.values())
+        check(flops == reading["prefill_matmul_flops"],
+              f"{arch} prefill: {flops} matmul FLOPs reckoned on meta, "
+              f"{reading['prefill_matmul_flops']} counted on the card")
+        line.update(prefill_matmul_flops_meta=flops,
+                    prefill_matmul_flops_card=reading[
+                        "prefill_matmul_flops"], flops_equal=True)
+    emit(**line, reckon_s=time.perf_counter() - t0)
+
+
+def reckon_remat(read):
+    """Phase 12's remat cell: ``remat_line``'s three passes (one loss and
+    backward of tinyllama-1.1b over 1 x 2,048 tokens: plain, plain beside
+    the first pass's gradients, remat beside two passes' gradients)
+    reckoned on the meta device, each peak within ``REMAT_PEAK_REL`` of
+    the card's."""
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis
+    from repro_torch.models import loss_fn, make_model
+    t0 = time.perf_counter()
+    model = make_model(get_config(TINYLLAMA), seed=None, device="meta")
+    params = list(model.parameters())
+    batch = {"tokens": torch.empty(1, REMAT_SEQ, dtype=torch.int64,
+                                   device="meta")}
+
+    def loss_and_backward(remat):
+        model.forward = functools.partial(type(model).forward, model,
+                                          remat=remat)
+        try:
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+        finally:
+            del model.forward
+        return loss.detach()
+
+    peaks = []
+    for remat, held in ((False, 0), (False, 1), (True, 2)):
+        model.zero_grad(set_to_none=True)
+        kept = [torch.empty_like(p) for p in params for _ in range(held)]
+        _, _, live = analysis.reckon(
+            lambda: loss_and_backward(remat), (params, batch, kept),
+            count_ops=False)
+        peaks.append(live.peak)
+    model.zero_grad(set_to_none=True)
+    gaps = [(p - r) / r for p, r in zip(peaks, read)]
+    check(all(abs(g) <= REMAT_PEAK_REL for g in gaps),
+          f"remat: reckoned peaks {[p / 1e9 for p in peaks]} GB against "
+          f"{[r / 1e9 for r in read]} GB read")
+    emit(phase="cost_report", cell="remat", arch=TINYLLAMA, batch=1,
+         seq=REMAT_SEQ, passes=["plain", "plain", "remat"],
+         reckoned_peak_gb=[p / 1e9 for p in peaks],
+         read_peak_gb=[r / 1e9 for r in read], rel_gap=gaps,
+         limit=REMAT_PEAK_REL, reckon_s=time.perf_counter() - t0)
+
+
+def cost_report_phase(readings):
+    """Phase 12: the cells phase 11 has just measured, reckoned on the
+    meta device with no weights on the card (``launch/analysis.py``) and
+    held to the readings."""
+    for arch in DENSE:
+        reckon_serve(arch, readings[arch])
+    reckon_remat(readings["remat"])
 
 
 def main() -> int:
@@ -4122,11 +4275,17 @@ def main() -> int:
     # dense archs at full width and depth: llama3.2-1b, qwen3-8b and
     # gemma3-4b served on both attention routes, llama3.2-1b and gemma3-4b
     # FL-trained under each aggregator
-    for k, v in dense_phase().items():
+    counts, readings = dense_phase()
+    for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
 
     phase_start[12] = time.perf_counter()
-    # 12. the kernel table at the main path's shapes and types (launches:
+    # 12. the cost report: phase 11's serve and remat cells reckoned on the
+    # meta device (no weights on the card) against what the card read
+    cost_report_phase(readings)
+
+    phase_start[13] = time.perf_counter()
+    # 13. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

@@ -15,8 +15,10 @@ versions and their callers:
   linear_scan     — the first-order linear scan h_t = a_t h_{t-1} + b_t,
                     the RG-LRU recurrence of a model's prefill
 
-Each wrapper counts its launches in ``<wrapper>.launches``; the sources
-build with nvcc at first use (``build.py``).
+Each wrapper counts its launches in ``<wrapper>.launches``, and its calls
+on tensors without data (the meta device, fake tensors), which launch
+nothing, in ``<wrapper>.reckoned`` (``reckon.py``); the sources build
+with nvcc at first use (``build.py``).
 """
 from . import ops, ref
 from .dithered_quant import dithered_quantize, dithered_quantize_rows
@@ -41,3 +43,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def reckoned_counts() -> dict:
+    """{kernel name: calls on tensors without data, which launch nothing}."""
+    return {k.__name__: k.reckoned for k in KERNELS}

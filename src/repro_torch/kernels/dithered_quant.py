@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/dithered_quant.py::dithered_quantize_rows_2d``.
 CPU tensors take the plain version (``ref.dithered_quantize_rows_ref``);
-CUDA tensors launch the kernel on the current stream or raise.
+CUDA tensors launch the kernel on the current stream or raise; tensors
+without data (meta, fake) are reckoned (``reckon.py``).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 _FUNCS = {torch.float64: "dithered_quantize_rows_f64",
@@ -43,9 +44,10 @@ def dithered_quantize_rows(g: torch.Tensor, u: torch.Tensor,
     if not (g.device == u.device == scal.device):
         raise ValueError("dithered_quantize_rows operands must share one "
                          "device")
-    if g.device.type == "cpu":
+    abstract = reckon.abstract(g)
+    if g.device.type == "cpu" and not abstract:
         return ref.dithered_quantize_rows_ref(g, u, scal[:, 0], scal[:, 1])
-    if g.device.type != "cuda":
+    if g.device.type != "cuda" and not abstract:
         raise ValueError(f"dithered_quantize_rows runs on cuda or cpu, not "
                          f"{g.device}")
     if not all(t.is_contiguous() for t in (g, u, scal)):
@@ -53,6 +55,8 @@ def dithered_quantize_rows(g: torch.Tensor, u: torch.Tensor,
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(dithered_quantize_rows, (g, u, scal), out)
     lib = build.library("dithered_quant", _SIGNATURES)
     with torch.cuda.device(g.device):
         err = getattr(lib, fn)(
@@ -66,6 +70,7 @@ def dithered_quantize_rows(g: torch.Tensor, u: torch.Tensor,
 
 
 dithered_quantize_rows.launches = 0
+dithered_quantize_rows.reckoned = 0
 
 
 def dithered_quantize(g: torch.Tensor, u: torch.Tensor,
@@ -87,9 +92,10 @@ def dithered_quantize(g: torch.Tensor, u: torch.Tensor,
                          f"{tuple(scal.shape)}")
     if not (g.device == u.device == scal.device):
         raise ValueError("dithered_quantize operands must share one device")
-    if g.device.type == "cpu":
+    abstract = reckon.abstract(g)
+    if g.device.type == "cpu" and not abstract:
         return ref.dithered_quantize_ref(g, u, scal[0], scal[1])
-    if g.device.type != "cuda":
+    if g.device.type != "cuda" and not abstract:
         raise ValueError(f"dithered_quantize runs on cuda or cpu, not "
                          f"{g.device}")
     if not all(t.is_contiguous() for t in (g, u, scal)):
@@ -97,6 +103,8 @@ def dithered_quantize(g: torch.Tensor, u: torch.Tensor,
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(dithered_quantize, (g, u, scal), out)
     lib = build.library("dithered_quant", _SIGNATURES)
     with torch.cuda.device(g.device):
         err = getattr(lib, fn)(
@@ -109,3 +117,4 @@ def dithered_quantize(g: torch.Tensor, u: torch.Tensor,
 
 
 dithered_quantize.launches = 0
+dithered_quantize.reckoned = 0

@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/linear_scan.py::linear_scan_fsl``. CPU tensors
 take the plain version (``ref.linear_scan_ref``); CUDA tensors launch the
-kernel on the current stream or raise.
+kernel on the current stream or raise; tensors without data (meta, fake)
+are reckoned (``reckon.py``).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 
@@ -35,12 +36,15 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
         raise ValueError("linear_scan inputs lie on different devices")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("linear_scan takes contiguous tensors")
-    if a.device.type == "cpu":
+    abstract = reckon.abstract(a)
+    if a.device.type == "cpu" and not abstract:
         return ref.linear_scan_ref(a, b, h0)
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not abstract:
         raise ValueError(f"linear_scan runs on cuda or cpu, not {a.device}")
     h_all = torch.empty_like(a)
     h_last = torch.empty_like(h0)
+    if abstract:
+        return reckon.call(linear_scan, ins, (h_all, h_last))
     lib = build.library("linear_scan", {"linear_scan_f32": _ARGS})
     with torch.cuda.device(a.device):
         err = lib.linear_scan_f32(
@@ -54,3 +58,4 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 
 
 linear_scan.launches = 0
+linear_scan.reckoned = 0

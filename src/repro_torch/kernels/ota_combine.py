@@ -6,7 +6,8 @@ Both replace ``repro/kernels/ota_combine.py::ota_combine_2d``:
 noise), ``ota_combine_keyed`` draws its f32 normals from a threefry key
 inside the kernel (the FL-LM collective). CPU tensors take the plain
 versions (``ref.ota_combine_ref``, ``ref.ota_combine_keyed_ref``); CUDA
-tensors launch the kernel on the current stream or raise.
+tensors launch the kernel on the current stream or raise; tensors without
+data (meta, fake) are reckoned (``reckon.py``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 _FUNCS = {(torch.float64, torch.float64): "ota_combine_f64",
@@ -50,13 +51,17 @@ def ota_combine(g: torch.Tensor, inv_alpha: torch.Tensor,
         raise TypeError(f"inv_alpha must be {z.dtype}, got {inv_alpha.dtype}")
     if not (g.device == z.device == inv_alpha.device):
         raise ValueError("ota_combine operands must share one device")
-    if g.device.type == "cpu":
-        return ref.ota_combine_ref(g, inv_alpha, z)
-    if g.device.type != "cuda":
-        raise ValueError(f"ota_combine runs on cuda or cpu, not {g.device}")
     ts = (g, inv_alpha, z)
+    abstract = reckon.abstract(g)
+    if g.device.type == "cpu" and not abstract:
+        return ref.ota_combine_ref(g, inv_alpha, z)
+    if g.device.type != "cuda" and not abstract:
+        raise ValueError(f"ota_combine runs on cuda or cpu, not {g.device}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ota_combine takes contiguous tensors")
+    if abstract:
+        out = torch.empty_like(z)
+        return out if out.numel() == 0 else reckon.call(ota_combine, ts, out)
     if any(t.data_ptr() % 16 for t in (g, z)):
         raise ValueError("ota_combine takes 16-byte aligned g and z")
     out = torch.empty_like(z)
@@ -74,6 +79,7 @@ def ota_combine(g: torch.Tensor, inv_alpha: torch.Tensor,
 
 
 ota_combine.launches = 0
+ota_combine.reckoned = 0
 
 
 def _host_number(x, name: str) -> float:
@@ -111,14 +117,17 @@ def ota_combine_keyed(g: torch.Tensor, inv_alpha, scale,
     if not (0 <= k0 < 1 << 32 and 0 <= k1 < 1 << 32):
         raise ValueError(f"ota_combine_keyed takes a key of two 32-bit "
                          f"words, got {key}")
-    if g.device.type == "cpu":
+    abstract = reckon.abstract(g)
+    if g.device.type == "cpu" and not abstract:
         return ref.ota_combine_keyed_ref(g, inv_alpha, scale, (k0, k1))
-    if g.device.type != "cuda":
+    if g.device.type != "cuda" and not abstract:
         raise ValueError(f"ota_combine_keyed runs on cuda or cpu, not "
                          f"{g.device}")
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(ota_combine_keyed, (g,), out)
     lib = build.library("ota_combine", _SIGNATURES)
     with torch.cuda.device(g.device):
         err = getattr(lib, fn)(
@@ -132,3 +141,4 @@ def ota_combine_keyed(g: torch.Tensor, inv_alpha, scale,
 
 
 ota_combine_keyed.launches = 0
+ota_combine_keyed.reckoned = 0

@@ -6,7 +6,8 @@ Replace ``repro/kernels/payload.py``'s ``quantize_pack_rows_2d``,
 the uint32 bits of the reference's layout kept in int32 tensors, shaped
 (rows, W, LANES) with W = ``ref.payload_word_rows(d, code_bits)``. CPU
 tensors take the plain versions (``ref.*_ref``); CUDA tensors launch the
-kernel on the current stream or raise.
+kernel on the current stream or raise; tensors without data (meta, fake)
+are reckoned (``reckon.py``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 from .ref import LANES, payload_word_rows
 
 CODE_BITS_CHOICES = (4, 8, 16)
@@ -31,7 +32,7 @@ _SIGS = {f"{name}_{t}": [ctypes.c_int, *[_P] * n_ptr, *[_I] * n_int, _P]
 
 def _check(name, dtype, code_bits, tensors, shapes_ok, shapes):
     """Type, code width, shape and device checks shared by the wrappers;
-    returns the operands' device."""
+    returns the operands' device and whether they hold no data."""
     if dtype not in _SUFFIX:
         raise TypeError(f"{name} takes f64 or f32 floats, got {dtype}")
     if code_bits not in CODE_BITS_CHOICES:
@@ -42,11 +43,13 @@ def _check(name, dtype, code_bits, tensors, shapes_ok, shapes):
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name} operands must share one device")
-    if dev.type not in ("cpu", "cuda"):
+    abstract = reckon.abstract(tensors[0])
+    if dev.type not in ("cpu", "cuda") and not abstract:
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+    if ((dev.type == "cuda" or abstract)
+            and not all(t.is_contiguous() for t in tensors)):
         raise ValueError(f"{name} takes contiguous tensors")
-    return dev
+    return dev, abstract
 
 
 def _launch(name, dtype, code_bits, dev, *args):
@@ -70,18 +73,21 @@ def quantize_pack_rows(g: torch.Tensor, u: torch.Tensor, scal: torch.Tensor,
     name = "quantize_pack_rows"
     ok = (g.dim() == 2 and u.shape == g.shape
           and scal.shape == (g.shape[0], 2))
-    dev = _check(name, g.dtype, code_bits, (g, u, scal), ok,
-                 [tuple(g.shape), tuple(u.shape), tuple(scal.shape)])
+    dev, abstract = _check(name, g.dtype, code_bits, (g, u, scal), ok,
+                           [tuple(g.shape), tuple(u.shape),
+                            tuple(scal.shape)])
     if u.dtype != torch.float32 or scal.dtype != g.dtype:
         raise TypeError(f"{name} takes u f32 and scal in g's dtype; got "
                         f"{u.dtype}, {scal.dtype}")
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not abstract:
         return ref.quantize_pack_rows_ref(g, u, scal, code_bits)
     R, d = g.shape
     W = payload_word_rows(d, code_bits)
     words = torch.empty(R, W, LANES, dtype=torch.int32, device=dev)
     if words.numel() == 0:
         return words
+    if abstract:
+        return reckon.call(quantize_pack_rows, (g, u, scal), words)
     _launch(name, g.dtype, code_bits, dev, g.data_ptr(), u.data_ptr(),
             scal.data_ptr(), words.data_ptr(), R, d, W * LANES)
     quantize_pack_rows.launches += 1
@@ -99,16 +105,18 @@ def unpack_dequant_rows(words: torch.Tensor, scal: torch.Tensor,
     name = "unpack_dequant_rows"
     ok = (words.dim() == 3 and scal.shape == (words.shape[0], 2)
           and words.shape[1:] == (payload_word_rows(d, code_bits), LANES))
-    dev = _check(name, scal.dtype, code_bits, (words, scal), ok,
-                 [tuple(words.shape), tuple(scal.shape), d])
+    dev, abstract = _check(name, scal.dtype, code_bits, (words, scal), ok,
+                           [tuple(words.shape), tuple(scal.shape), d])
     if words.dtype != torch.int32:
         raise TypeError(f"{name} takes int32 words, got {words.dtype}")
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not abstract:
         return ref.unpack_dequant_rows_ref(words, scal, code_bits, d)
     R = words.shape[0]
     out = torch.empty(R, d, dtype=scal.dtype, device=dev)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(unpack_dequant_rows, (words, scal), out)
     _launch(name, scal.dtype, code_bits, dev, words.data_ptr(),
             scal.data_ptr(), out.data_ptr(), R, d, words[0].numel())
     unpack_dequant_rows.launches += 1
@@ -126,16 +134,18 @@ def packed_weighted_sum(words: torch.Tensor, scal: torch.Tensor,
     name = "packed_weighted_sum"
     ok = (words.dim() == 4 and scal.shape == (*words.shape[:2], 3)
           and words.shape[2:] == (payload_word_rows(d, code_bits), LANES))
-    dev = _check(name, scal.dtype, code_bits, (words, scal), ok,
-                 [tuple(words.shape), tuple(scal.shape), d])
+    dev, abstract = _check(name, scal.dtype, code_bits, (words, scal), ok,
+                           [tuple(words.shape), tuple(scal.shape), d])
     if words.dtype != torch.int32:
         raise TypeError(f"{name} takes int32 words, got {words.dtype}")
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not abstract:
         return ref.packed_weighted_sum_ref(words, scal, code_bits, d)
     T, N = scal.shape[:2]
     out = torch.empty(T, d, dtype=scal.dtype, device=dev)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(packed_weighted_sum, (words, scal), out)
     _launch(name, scal.dtype, code_bits, dev, words.data_ptr(),
             scal.data_ptr(), out.data_ptr(), T, N, d, words[0, 0].numel())
     packed_weighted_sum.launches += 1
@@ -145,3 +155,6 @@ def packed_weighted_sum(words: torch.Tensor, scal: torch.Tensor,
 quantize_pack_rows.launches = 0
 unpack_dequant_rows.launches = 0
 packed_weighted_sum.launches = 0
+quantize_pack_rows.reckoned = 0
+unpack_dequant_rows.reckoned = 0
+packed_weighted_sum.reckoned = 0

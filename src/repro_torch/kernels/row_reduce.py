@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/row_reduce.py::row_maxabs_sumsq_2d``. CPU tensors
 take the plain version (``ref.row_maxabs_sumsq_ref``); CUDA tensors launch
-the kernel on the current stream or raise.
+the kernel on the current stream or raise; tensors without data (meta,
+fake) are reckoned (``reckon.py``).
 
 The sum of squares adds in one fixed order, a function of d and g's type
 alone: each row is cut into ``ref.REDUCE_CLUSTER`` = 8 chunks of
@@ -18,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 
 _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 _FUNCS = {(torch.float64, torch.float64): "row_maxabs_sumsq_f64",
@@ -39,9 +40,10 @@ def row_maxabs_sumsq(g: torch.Tensor, acc_dtype=None) -> torch.Tensor:
     if g.dim() != 2 or g.shape[1] < 1:
         raise ValueError(f"row_maxabs_sumsq wants g (R, d) with d >= 1, "
                          f"got {tuple(g.shape)}")
-    if g.device.type == "cpu":
+    abstract = reckon.abstract(g)
+    if g.device.type == "cpu" and not abstract:
         return ref.row_maxabs_sumsq_ref(g, acc_dtype)
-    if g.device.type != "cuda":
+    if g.device.type != "cuda" and not abstract:
         raise ValueError(f"row_maxabs_sumsq runs on cuda or cpu, not "
                          f"{g.device}")
     if not g.is_contiguous():
@@ -49,6 +51,8 @@ def row_maxabs_sumsq(g: torch.Tensor, acc_dtype=None) -> torch.Tensor:
     out = torch.empty(g.shape[0], 2, dtype=acc_dtype, device=g.device)
     if out.numel() == 0:
         return out
+    if abstract:
+        return reckon.call(row_maxabs_sumsq, (g,), out)
     lib = build.library("row_reduce", {f: _ARGS for f in _FUNCS.values()})
     with torch.cuda.device(g.device):
         err = getattr(lib, fn)(g.data_ptr(), out.data_ptr(), g.shape[0],
@@ -61,3 +65,4 @@ def row_maxabs_sumsq(g: torch.Tensor, acc_dtype=None) -> torch.Tensor:
 
 
 row_maxabs_sumsq.launches = 0
+row_maxabs_sumsq.reckoned = 0

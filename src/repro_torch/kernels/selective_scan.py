@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/selective_scan.py::selective_scan_bfsn``. CPU
 tensors take the plain version (``ref.selective_scan_ref``); CUDA tensors
-launch the kernel on the current stream or raise.
+launch the kernel on the current stream or raise; tensors without data
+(meta, fake) are reckoned (``reckon.py``).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, reckon, ref
 
 MAX_STATE = 16
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
@@ -46,13 +47,16 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
         raise ValueError("selective_scan inputs lie on different devices")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("selective_scan takes contiguous tensors")
-    if dt.device.type == "cpu":
+    abstract = reckon.abstract(dt)
+    if dt.device.type == "cpu" and not abstract:
         return ref.selective_scan_ref(dt, x, bm, cm, a_w, h0)
-    if dt.device.type != "cuda":
+    if dt.device.type != "cuda" and not abstract:
         raise ValueError(f"selective_scan runs on cuda or cpu, not "
                          f"{dt.device}")
     y = torch.empty_like(dt)
     h_last = torch.empty_like(h0)
+    if abstract:
+        return reckon.call(selective_scan, ins, (y, h_last))
     lib = build.library("selective_scan", {"selective_scan_f32": _ARGS})
     with torch.cuda.device(dt.device):
         err = lib.selective_scan_f32(
@@ -65,3 +69,4 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
 
 
 selective_scan.launches = 0
+selective_scan.reckoned = 0

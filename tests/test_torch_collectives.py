@@ -270,8 +270,13 @@ def test_whole_tensor_wrapper_is_the_plain_version_and_checks():
         dithered_quantize(g, u[:2], scal)
     with pytest.raises(ValueError):
         dithered_quantize(g, u, scal[None])
-    with pytest.raises(ValueError):
-        dithered_quantize(g.to("meta"), u.to("meta"), scal.to("meta"))
+    with pytest.raises(ValueError):            # operands on two devices
+        dithered_quantize(g.to("meta"), u, scal)
+    # on the meta device the call is reckoned: the plain version's shape
+    # and dtype, no data, no launch
+    out = dithered_quantize(g.to("meta"), u.to("meta"), scal.to("meta"))
+    assert (out.shape, out.dtype, out.device.type) == (g.shape, g.dtype,
+                                                        "meta")
 
 
 # ---------------------------------------------------------- wireless_psum

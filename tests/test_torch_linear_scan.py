@@ -129,8 +129,12 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         kernels.linear_scan(a.transpose(0, 1).contiguous().transpose(0, 1),
                             b, h0)                            # strided
-    with pytest.raises(ValueError):
-        kernels.linear_scan(a.to("meta"), b.to("meta"), h0.to("meta"))
+    with pytest.raises(ValueError):                          # two devices
+        kernels.linear_scan(a.to("meta"), b, h0)
+    h_all, h_last = kernels.linear_scan(a.to("meta"), b.to("meta"),
+                                        h0.to("meta"))       # reckoned
+    assert (h_all.shape, h_last.shape, h_all.device.type) == \
+        (a.shape, h0.shape, "meta")
 
 
 def test_kernel_is_registered_and_built_from_its_source():

@@ -143,8 +143,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ota_combine_keyed(g, torch.ones((), device="meta"), 0.1, KEY)
     with pytest.raises(ValueError):
         ota_combine_keyed(g, 1.0, torch.zeros(2), KEY)       # not one entry
-    with pytest.raises(ValueError):            # g on neither cuda nor cpu
-        ota_combine_keyed(torch.zeros(4, 6, device="meta"), 1.0, 0.1, KEY)
+    with pytest.raises(ValueError):            # a meta g is checked too
+        ota_combine_keyed(torch.zeros(6, 4, device="meta").t(), 1.0, 0.1,
+                          KEY)
     with pytest.raises(ValueError):
         ota_combine_keyed(g, 1.0, 0.1, (0, 1 << 32))
     launches = ota_combine_keyed.launches    # the CPU takes the plain version

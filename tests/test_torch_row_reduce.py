@@ -207,8 +207,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         row_maxabs_sumsq(torch.zeros(8))
     with pytest.raises(ValueError):
         row_maxabs_sumsq(torch.zeros(3, 0))
-    with pytest.raises(ValueError):
-        row_maxabs_sumsq(torch.zeros(3, 8, device="meta"))
+    with pytest.raises(ValueError):            # a meta g is checked too
+        row_maxabs_sumsq(torch.zeros(8, 3, device="meta").t())
+    out = row_maxabs_sumsq(torch.zeros(3, 8, device="meta"))   # reckoned
+    assert (out.shape, out.device.type) == ((3, 2), "meta")
     launches = row_maxabs_sumsq.launches
     row_maxabs_sumsq(g)                    # the CPU takes the plain version
     assert row_maxabs_sumsq.launches == launches
