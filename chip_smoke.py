@@ -304,7 +304,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
      "remat": the remat line's three passes (the second beside the
      first's gradients, the third beside both passes'), each peak within
      10% of the card's;
-13. the seconds of each numbered phase, the kernel table, nvidia-smi's
+13. mesh — FL clients and Monte-Carlo trials across ranks
+   (``repro_torch.launch.distributed``, ``launch.mesh``, the mesh forms
+   of ``wireless_psum`` and ``make_train_step``, ``FLEngine(
+   shard_trials=True)``; no kernel of their own): the kernels are built
+   first, then 2 ranks fork from the fork server started before phase 1
+   (``distributed.prestart``) on the cards present (sharing card 0 under
+   gloo on a one-card machine, NCCL with a card each), one FL client a
+   rank; "mesh_ranks" gives each rank's backend, world size and device.
+   Each rank: the collective on fed leaves (bf16 and f32, 2 clients drawn
+   from a seed) against the one-card form over both clients, bit-equal in
+   the ideal, OTA and digital modes; (a) llama3.2-1b at full size (bf16,
+   random weights from seed 0), one ideal, one OTA and one digital mesh
+   step of 8 x 128 tokens from the same weights, batch and key, each
+   rank keeping its client's 4 rows: exactly 12 ``ota_combine_keyed``
+   (OTA) and 12 ``dithered_quantize`` (digital, its own client) a rank,
+   nothing else; the ranks' parameters identical by a fingerprint of
+   their bits and their losses equal; before them the one-card 2-client
+   step from the same weights (rank 0 the ideal and OTA ones, rank 1 the
+   digital one, at once): loss and every parameter compared, any
+   difference reported with its size; (b) Fig. 2
+   ProposedOTA (N = 50) and ProposedDigital (N = 10, the 150 s budget)
+   at d = 7850 on phase 4's designs, 4 trials over the 2 ranks with
+   ``shard_trials=True``, 40 rounds, every round evaluated: exactly 40
+   ``ota_combine`` / 40 ``dithered_quantize_rows`` a rank, every rank
+   the same run, held against rank 0's one-rank run (OTA within 1e-5 a
+   trial and round; digital to the bit). The lines say that seconds of
+   ranks sharing one card are not multi-card speeds;
+14. the seconds of each numbered phase, the kernel table, nvidia-smi's
    line, and the result line.
 """
 import dataclasses
@@ -399,7 +426,7 @@ def same_bits(a, b) -> bool:
     """Equal as integers: unlike ``torch.equal``, -0.0 differs from +0.0
     (and NaNs compare by their bits)."""
     import torch
-    ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.view(ints), b.view(ints)))
 
@@ -3881,6 +3908,308 @@ def cost_report_phase(readings):
     reckon_remat(readings["remat"])
 
 
+MESH_WORLD = 2                 # ranks of phase 13
+MESH_ARCH = "llama3.2-1b"
+MESH_LEAVES = 12              # llama3.2-1b's reference leaves
+MESH_FIG2_ROUNDS = 40
+MESH_OTA_REL = 1e-5           # sharded OTA against one rank, a round
+#: the rank that runs each aggregator's one-card 2-client reference step
+MESH_REFERENCE_RANK = {"ideal": 0, "ota": 0, "digital": 1}
+MESH_NOTE = ("ranks share one card under gloo, their collectives through "
+             "host copies: these seconds are not multi-card speeds")
+#: fed leaves of the collective check: (shape, dtype name)
+MESH_FED = (((16032, 2048), "bfloat16"), ((2048,), "float32"),
+            ((16, 2048, 512), "bfloat16"), ((3, 1001), "float32"))
+
+
+def fingerprint(model):
+    """Two int64 sums of every parameter's bits (plain and weighted by
+    position), one pair a parameter, on the card: equal parameters give
+    equal fingerprints, and any flipped bit changes them."""
+    import torch
+    out = []
+    for p in model.parameters():
+        flat = p.detach().reshape(-1)
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        v = flat.view(ints[flat.element_size()]).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out += [v.sum(), (v * w).sum()]
+        del v, w
+    return torch.stack(out)
+
+
+def mesh_fed(mesh):
+    """The mesh collective on fed leaves (each rank its client's, drawn
+    from a seed; every client's drawn here too) against the one-card form
+    over both clients, in each mode: (bit-equal, largest gap) a mode."""
+    import torch
+    from repro_torch.core import rngstream
+    from repro_torch.core.collectives import WirelessRound, wireless_psum
+    from repro_torch.launch.mesh import client_index, n_clients
+
+    def leaves(m):
+        g = torch.Generator(device="cuda").manual_seed(100 + m)
+        return [(torch.randn(shape, generator=g, device="cuda") * (m + 1.5)
+                 ).to(getattr(torch, dt)) for shape, dt in MESH_FED]
+
+    n, c = n_clients(mesh), client_index(mesh)
+    clients = [leaves(m) for m in range(n)]
+    rinfo = WirelessRound(weight=torch.tensor([0.7, 1.3][:n]),
+                          alpha=torch.tensor(2.5),
+                          noise_scale=torch.tensor(1e-2),
+                          levels=torch.tensor([255.0, 15.0][:n]))
+    key = rngstream.prng_key(11)
+    out = {}
+    for mode in ("ideal", "ota", "digital"):
+        got = wireless_psum(clients[c], rinfo, key, mode=mode, mesh=mesh)
+        want = wireless_psum(iter(clients), rinfo, key, mode=mode)
+        out[mode] = (all(same_bits(a, b) for a, b in zip(got, want)),
+                     max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got, want)))
+    return out
+
+
+def mesh_train(mesh):
+    """(a) llama3.2-1b's FL step at full size with one client a rank, one
+    ideal, one OTA and one digital step from the same weights, batch and
+    key: each rank's launches, loss, seconds and parameter fingerprint,
+    and every parameter held against the one-card 2-client step from the
+    same weights. The one-card steps run first, on both ranks at once
+    (``MESH_REFERENCE_RANK``: rank 0 the ideal and OTA steps, rank 1 the
+    digital one), and hold the first forward and backward of each rank's
+    process; each rank compares its own after the mesh steps."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist, rngstream
+    from repro_torch.launch.mesh import client_index, n_clients
+    from repro_torch.launch.steps import fl_round_arrays, make_train_step
+    from repro_torch.launch.train import synthetic_token_batch
+    from repro_torch.models import make_model, param_count
+    from repro_torch.optim import SGDConfig
+    n, c = n_clients(mesh), client_index(mesh)
+    model = make_model(get_config(MESH_ARCH), seed=0)
+    init = [p.detach().clone() for p in model.parameters()]
+    batch = {k: v.cuda() for k, v in synthetic_token_batch(
+        np.random.default_rng(0), model.cfg.vocab_size, TRAIN_RUN["batch"],
+        TRAIN_RUN["seq"]).items()}
+    kw = dict(gammas=np.array([0.8, 1.2]), alpha=1.5, noise_scale=1e-3,
+              levels=255.0)
+    sgd = SGDConfig(eta=1e-2)
+    key = rngstream.prng_key(0)
+    out = {"params": param_count(model)}
+    aggs = ("ideal", "ota", "digital")
+
+    def reset():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+
+    refs = {}
+    for agg in aggs:
+        if MESH_REFERENCE_RANK[agg] == c:
+            reset()
+            one = make_train_step(model, n_clients=n, aggregator=agg,
+                                  sgd=sgd, batch=TRAIN_RUN["batch"],
+                                  seq=TRAIN_RUN["seq"])
+            refs[agg] = (float(one(batch, fl_round_arrays(n, **kw), key)),
+                         [p.detach().clone() for p in model.parameters()])
+    for agg in aggs:
+        reset()
+        step = make_train_step(model, mesh=mesh, aggregator=agg, sgd=sgd,
+                               batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(step(batch, fl_round_arrays(mesh, **kw), key))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        fp = dist.all_gather_cat(fingerprint(model)[None])
+        held = sum(t.numel() * t.element_size()
+                   for _, kept in refs.values() for t in kept)
+        row = dict(loss=loss, seconds=seconds, launches=counts,
+                   ranks_identical=bool((fp == fp[0]).all()),
+                   finite=all(bool(torch.isfinite(p).all())
+                              for p in model.parameters()),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   held_reference_gb=held / 1e9)
+        if agg in refs:
+            one_loss, theirs = refs.pop(agg)
+            mine = [p.detach() for p in model.parameters()]
+            gaps = [(a.float() - b.float()).abs()
+                    for a, b in zip(mine, theirs)]
+            row.update(one_card_loss=one_loss,
+                       one_card_equal=one_loss == loss and all(
+                           same_bits(a, b) for a, b in zip(mine, theirs)),
+                       params_differing=int(sum(int((g > 0).sum())
+                                                for g in gaps)),
+                       max_param_gap=max(float(g.max()) for g in gaps))
+            del theirs, gaps
+        torch.distributed.barrier()
+        out[agg] = row
+    del model, init
+    free_card()
+    return out
+
+
+def mesh_fig2(mesh, ota_p, dig_p):
+    """(b) Fig. 2 ProposedOTA (N = 50) and ProposedDigital (N = 10) at d =
+    7850, 4 trials over the ranks with ``shard_trials=True``, 40 rounds:
+    each rank's launches, seconds and run; rank 0 also runs the 4 trials
+    on its own (one rank) and compares."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import baselines as B
+    from repro_torch.fl import FLTrainer
+    from repro_torch.launch.mesh import client_index
+    out = {}
+    for name, n_dev, per_class, agg, kw in (
+            ("ota", 50, 6000, B.ProposedOTA(ota_p), dict(eval_every=1)),
+            ("digital", 10, 1200, B.ProposedDigital(dig_p),
+             dict(eval_every=1, time_budget_s=150.0))):
+        task, ds, dep, eta = fig2_setup(n_dev, per_class)
+        run = dict(rounds=MESH_FIG2_ROUNDS, trials=4, seed=0, **kw)
+        trainer = FLTrainer(task, ds, dep, eta, shard_trials=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = trainer.run(agg, **run)
+        torch.cuda.synchronize()
+        row = dict(seconds=time.perf_counter() - t0,
+                   launches=kernels.launch_counts(),
+                   loss=log.global_loss.mean(0).tolist())
+        if client_index(mesh) == 0:
+            t0 = time.perf_counter()
+            one = FLTrainer(task, ds, dep, eta).run(agg, **run)
+            row["one_rank_seconds"] = time.perf_counter() - t0
+            rel = np.abs(log.global_loss - one.global_loss) / np.abs(
+                one.global_loss)
+            row.update(
+                one_rank_equal=bool(
+                    np.array_equal(log.global_loss, one.global_loss)
+                    and np.array_equal(log.accuracy, one.accuracy)
+                    and np.array_equal(log.wall_time_s, one.wall_time_s)),
+                max_rel_gap=float(rel.max()))
+        torch.distributed.barrier()
+        out[name] = row
+    return out
+
+
+def mesh_rank(rank, ota_p, dig_p):
+    """Phase 13 in one rank: its backend, world and device, then the fed
+    collective, (a) and (b)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device_type="cuda")
+    out = dict(rank=rank, world=dist.get_world_size(),
+               backend=dist.get_backend(),
+               device=f"cuda:{torch.cuda.current_device()}",
+               mesh=dict(mesh.shape))
+    t0 = time.perf_counter()
+    out["fed"] = mesh_fed(mesh)
+    out["train"] = mesh_train(mesh)
+    out["fig2"] = mesh_fig2(mesh, ota_p, dig_p)
+    out["rank_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(ota_p, dig_p):
+    """Phase 13: two ranks on the cards present (sharing card 0 under gloo
+    on a one-card machine, NCCL with two cards), one FL client a rank.
+    Returns the ranks' main-path launches, summed."""
+    import torch
+    from repro_torch.launch import distributed
+    free_card()
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(mesh_rank, MESH_WORLD, device="cuda",
+                              store_dir=ROOT / "build" / "mesh",
+                              args=(ota_p, dig_p))
+    seconds = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    want_backend = distributed.backend_for("cuda", MESH_WORLD, cards)
+    emit(phase="mesh_ranks", note=MESH_NOTE, world=MESH_WORLD, cards=cards,
+         ranks=[{k: r[k] for k in ("rank", "world", "backend", "device",
+                                    "mesh", "rank_seconds")}
+                for r in ranks])
+    check(all(r["backend"] == want_backend and r["world"] == MESH_WORLD
+              for r in ranks), f"ranks' backends {[r['backend'] for r in ranks]}")
+    for r in ranks:
+        for mode, (equal, gap) in r["fed"].items():
+            check(equal, f"rank {r['rank']}: the mesh {mode} collective on "
+                         f"fed leaves differs from the one-card form by {gap}")
+    emit(phase="mesh_fed_vs_one_card", leaves=[list(s) + [dt] for s, dt in
+                                               MESH_FED],
+         modes={m: ranks[0]["fed"][m][0] for m in ranks[0]["fed"]})
+    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": MESH_LEAVES},
+                "digital": {"dithered_quantize": MESH_LEAVES}}
+    total = {}
+    for agg in ("ideal", "ota", "digital"):
+        rows = [r["train"][agg] for r in ranks]
+        lead = rows[0]
+        for r, row in zip(ranks, rows):
+            check(row["launches"] == {k: per_step[agg].get(k, 0)
+                                      for k in row["launches"]},
+                  f"{agg} rank {r['rank']}: launches {row['launches']}")
+            check(row["ranks_identical"] and row["finite"],
+                  f"{agg}: ranks' parameters differ or are not finite")
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(all(row["loss"] == lead["loss"] for row in rows),
+              f"{agg}: ranks' losses {[row['loss'] for row in rows]}")
+        ref = rows[MESH_REFERENCE_RANK[agg]]
+        emit(phase="main_path", run=f"{MESH_ARCH} mesh train {agg}",
+             note=MESH_NOTE, params=ranks[0]["train"]["params"],
+             ranks=MESH_WORLD, clients=MESH_WORLD, batch=TRAIN_RUN["batch"],
+             seq=TRAIN_RUN["seq"], loss=lead["loss"],
+             one_card_rank=MESH_REFERENCE_RANK[agg],
+             one_card_loss=ref["one_card_loss"],
+             one_card_equal=ref["one_card_equal"],
+             params_differing=ref["params_differing"],
+             max_param_gap=ref["max_param_gap"], ranks_identical=True,
+             launches_per_rank=[row["launches"] for row in rows],
+             step_s_per_rank=[row["seconds"] for row in rows],
+             peak_memory_gb_per_rank=[row["peak_memory_gb"]
+                                      for row in rows],
+             held_reference_gb_per_rank=[row["held_reference_gb"]
+                                         for row in rows])
+    for name, want in (("ota", {"ota_combine": MESH_FIG2_ROUNDS}),
+                       ("digital",
+                        {"dithered_quantize_rows": MESH_FIG2_ROUNDS})):
+        rows = [r["fig2"][name] for r in ranks]
+        lead = rows[0]
+        for r, row in zip(ranks, rows):
+            check(row["launches"] == {k: want.get(k, 0)
+                                      for k in row["launches"]},
+                  f"Fig. 2 {name} rank {r['rank']}: launches "
+                  f"{row['launches']}")
+            check(row["loss"] == lead["loss"],
+                  f"Fig. 2 {name}: ranks return different runs")
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+        if name == "ota":
+            check(lead["max_rel_gap"] <= MESH_OTA_REL,
+                  f"Fig. 2 ota sharded vs one rank: {lead['max_rel_gap']}")
+        else:
+            check(lead["one_rank_equal"],
+                  f"Fig. 2 digital sharded vs one rank: not bit-equal, "
+                  f"largest gap {lead['max_rel_gap']}")
+        emit(phase="main_path", run=f"Fig. 2 {name} shard_trials",
+             note=MESH_NOTE, ranks=MESH_WORLD, trials=4,
+             rounds=MESH_FIG2_ROUNDS, loss=lead["loss"],
+             one_rank_equal=lead["one_rank_equal"],
+             max_rel_gap=lead["max_rel_gap"],
+             one_rank_seconds=lead["one_rank_seconds"],
+             launches_per_rank=[row["launches"] for row in rows],
+             seconds_per_rank=[row["seconds"] for row in rows])
+    emit(phase="mesh_done", note=MESH_NOTE, seconds=seconds)
+    return total
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3897,8 +4226,12 @@ def main() -> int:
     from repro_torch.core import baselines as B
     from repro_torch.fl import FLEngine, FLTrainer
     from repro_torch.kernels import build
+    from repro_torch.launch import distributed
     t_start = time.perf_counter()
     phase_start = {}                # numbered phase: its start
+    # phase 13's ranks fork from this server; its imports run beside
+    # phases 1-12
+    distributed.prestart()
 
     phase_start[1] = time.perf_counter()
     # 1. device
@@ -4285,7 +4618,14 @@ def main() -> int:
     cost_report_phase(readings)
 
     phase_start[13] = time.perf_counter()
-    # 13. the kernel table at the main path's shapes and types (launches:
+    # 13. the client and trial axes across ranks: two ranks on the card(s),
+    # llama3.2-1b's FL step with one client a rank and Fig. 2's trials
+    # over the ranks
+    for k, v in mesh_phase(*designed).items():
+        launches[k] = launches.get(k, 0) + v
+
+    phase_start[14] = time.perf_counter()
+    # 14. the kernel table at the main path's shapes and types (launches:
     # all main-path runs together; unpack_dequant_rows, the materializing
     # decoder, is on no engine path; row_maxabs_sumsq at Best
     # Channel-Norm's (4 trials x 10 devices, 7850) f64; selective_scan at

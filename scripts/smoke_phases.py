@@ -22,7 +22,8 @@ PHASE_FIRST = (
     (6, "scenario", None), (7, "layer_streams_vs_cpu", None),
     (8, "fast", None), (9, "serve_kernel_vs_plain", None),
     (10, "psum_kernel_vs_plain", None), (11, "remat", None),
-    (12, "cost_report", None), (13, "phase_seconds", None))
+    (12, "cost_report", None), (13, "mesh_ranks", None),
+    (14, "phase_seconds", None))
 
 
 def label(line):

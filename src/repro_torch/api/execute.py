@@ -245,25 +245,30 @@ def _worker_run_cell(job):
     return index, payload
 
 
-def _pool_worker(wid: int, jobq, resq) -> None:
+def _pool_worker(wid: int, jobq, res) -> None:
     """Persistent parallel-sweep worker: drain jobs until the sentinel.
 
     Announces ``("start", wid, index)`` *before* running a cell so the
     supervisor's per-cell timeout clock starts at actual work start —
     process spawn and the first torch import are never billed to a cell.
+    ``res`` is this worker's own pipe to the supervisor, written in this
+    thread: a worker killed mid-cell leaves no lock held that the other
+    workers' results would wait on (a ``multiprocessing.Queue`` shared by
+    the workers writes from a feeder thread under one lock for all, and a
+    worker killed while its feeder held it stopped every later result).
     """
     while True:
         job = jobq.get()
         if job is None:
             return
         index = job[1]
-        resq.put(("start", wid, index))
+        res.send(("start", wid, index))
         try:
             _, payload = _worker_run_cell(job)
         except BaseException:              # noqa: BLE001 — shipped to parent
-            resq.put(("error", wid, index, traceback.format_exc()))
+            res.send(("error", wid, index, traceback.format_exc()))
         else:
-            resq.put(("ok", wid, index, payload))
+            res.send(("ok", wid, index, payload))
 
 
 def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
@@ -297,7 +302,7 @@ def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
     if the cell is not yet finalized and ignored as a duplicate if it is.
     """
     import multiprocessing as mp
-    import queue as queue_mod
+    from multiprocessing.connection import wait as wait_any
 
     todo_idx = {c.index for c in todo}
     memo_seed = {k: v for k, v in memo._store.items()
@@ -332,16 +337,17 @@ def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
         from ..kernels import build
         build.build()
     ctx_mp = mp.get_context("spawn")
-    resq = ctx_mp.Queue()
     n_workers = min(jobs, total)
 
     def _spawn_worker(wid):
         jobq = ctx_mp.Queue()
-        proc = ctx_mp.Process(target=_pool_worker, args=(wid, jobq, resq),
+        res, res_w = ctx_mp.Pipe(duplex=False)
+        proc = ctx_mp.Process(target=_pool_worker, args=(wid, jobq, res_w),
                               daemon=True)
         proc.start()
-        return {"proc": proc, "jobq": jobq, "index": None, "job": None,
-                "started": None}
+        res_w.close()               # the worker's end: EOF when it dies
+        return {"proc": proc, "jobq": jobq, "res": res, "index": None,
+                "job": None, "started": None}
 
     ready = list(queue_jobs)       # FIFO of jobs awaiting a worker
     delayed = []                   # [(not_before, job)] backoff requeues
@@ -379,11 +385,14 @@ def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
                     w["index"], w["job"], w["started"] = job[1], job, None
                     w["jobq"].put(job)
 
-            try:
-                msg = resq.get(timeout=0.1)
-            except queue_mod.Empty:
-                msg = None
-            if msg is not None:
+            msgs = []
+            for conn in wait_any([w["res"] for w in workers.values()],
+                                 timeout=0.1):
+                try:
+                    msgs.append(conn.recv())
+                except (EOFError, OSError):
+                    pass        # its worker died: the liveness sweep sees it
+            for msg in msgs:
                 tag, wid, index = msg[0], msg[1], msg[2]
                 w = workers.get(wid)
                 if tag == "start":
@@ -398,6 +407,7 @@ def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
                             finalized.add(index)
                     if w is not None and w["index"] == index:
                         w["index"] = w["job"] = w["started"] = None
+            if msgs:
                 continue        # drain results before liveness checks
 
             # liveness + per-cell deadline sweep
@@ -414,6 +424,7 @@ def _run_parallel(pl: Plan, todo, contexts, memo, cells_dir: Path,
                 if timed_out:
                     w["proc"].kill()
                 w["proc"].join(timeout=5)
+                w["res"].close()
                 del workers[wid]
                 if index is not None and index not in finalized:
                     cell = cell_by_index[index]

@@ -54,8 +54,21 @@ faults a round in which a delivering straggler takes part is stretched
 by ``straggler_mult`` and a deadline caps it, per trial on the device.
 
 The engine covers both modes, full and mini-batches for all 15 Sec. V
-schemes on one device; trials across cards (``shard_trials=True``)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+schemes. With ``shard_trials=True`` the trials are laid over the ranks
+of the default ``torch.distributed`` group (the reference's ``shard_map``
+over a "trials" mesh, ``repro/fl/engine.py:913-929``): rank r of W runs
+trials [r T/W, (r+1) T/W), every per-trial stream keyed by the global
+trial index, and an ``all_gather`` puts the (trials, ...) models back in
+trial order, so every rank returns the unsharded run's ``TrainLog``.
+Only the streams and the scheme rounds are split. Each rank computes its
+trials' gradients in the unsharded run's (trials, ...) layout, the other
+trials' slots holding zero models (``FLEngine._grads``: the task's sums
+over the trials change their bits with the number of trials on the CPU),
+and evaluates all T trials' models after the gather. So a rank does the
+gradient products and the evaluation of the whole T-trial run, and
+sharding gives no speed-up until the task's trial reduction is made
+independent of the number of trials (ROADMAP Queue 1).
+Without a process group that is the one-rank mesh: the unsharded run.
 """
 from __future__ import annotations
 
@@ -65,7 +78,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import async_fl
+from ..core import async_fl, dist
 from ..core import baselines as B
 from ..core import participation as participation_lib
 from ..core import rngstream
@@ -80,9 +93,6 @@ from ..core.ota import (bbfl_round, opc_ota_comp_eta, opc_ota_fl_round,
 from ..core.quantize import payload_bits
 from ..device import resolve_device
 from ..kernels import ops
-
-_LATER = ("ROADMAP Queue 1 item 10 step 6 (multi-card: trials across "
-          "cards)")
 
 #: entries of one chunk of a stream's rounds (``_Chunked``)
 _CHUNK_ENTRIES = 1 << 22
@@ -439,13 +449,14 @@ class _Layers:
     and the state they carry across rounds (the async buffer and the
     "stale" payloads, zeros at the start)."""
 
-    def __init__(self, engine, seed: int, trials: int, T: int):
+    def __init__(self, engine, seed: int, trial_ids, T: int):
         dev, f64 = engine.device, torch.float64
         N, d = engine.dep.n_devices, engine.task.dim
+        trials = len(trial_ids)
         self.bf16 = engine.payload_dtype == "bf16"
 
         def uniforms(blocks, base_key):
-            keys = [base_key(seed, tr) for tr in range(trials)]
+            keys = [base_key(seed, tr) for tr in trial_ids]
             return blocks(keys, T, N, device=dev).to(f64)
 
         def table(a):
@@ -527,15 +538,6 @@ def _project(w: torch.Tensor, radius: float) -> torch.Tensor:
     return w * torch.clamp(radius / torch.clamp(nrm, min=1e-300), max=1.0)
 
 
-def check_slice(*, shard_trials: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what the port's engine does not
-    run yet: trials laid over several cards."""
-    if shard_trials:
-        raise NotImplementedError(
-            f"shard_trials=True is not in the port yet (one card a run); "
-            f"it arrives with {_LATER}")
-
-
 class _Chunked:
     """A stream's (trials, rounds, ...) draws made ``rounds`` at a time by
     ``make(t0, rounds)``, about ``_CHUNK_ENTRIES`` entries a chunk, read
@@ -559,9 +561,10 @@ class _Streams:
     and the selection rows (replayed from NumPy's sequential generators or
     drawn from the fast threefry streams) and the mini-batch indices."""
 
-    def __init__(self, engine, port: SchemePort, seed: int, trials: int,
+    def __init__(self, engine, port: SchemePort, seed: int, trial_ids,
                  T: int, rng: str):
         dev = engine.device
+        trials = len(trial_ids)
         d, N = engine.task.dim, engine.dep.n_devices
         lambdas = engine.dep.lambdas
         self.z = self.sel = self.idx = None
@@ -574,7 +577,7 @@ class _Streams:
 
             def keys(tag):
                 return [rngstream.stream_base_key(seed, tr, tag)
-                        for tr in range(trials)]
+                        for tr in trial_ids]
 
             fkeys = keys(rngstream.FADING_TAG)
             self.habs = _Chunked(lambda t0, r: fading_abs_fast(
@@ -593,20 +596,20 @@ class _Streams:
         else:
             self.habs = torch.as_tensor(np.abs(np.stack(
                 [sample_fading_batch(lambdas, seed * 1000 + tr, T)
-                 for tr in range(trials)])), device=dev)  # (trials, T, N)
+                 for tr in trial_ids])), device=dev)  # (trials, T, N)
             if port.needs_noise:
                 self.z = torch.as_tensor(np.stack(
                     [rngstream.trial_rng(seed, tr).standard_normal((T, d))
-                     for tr in range(trials)]), device=dev)
+                     for tr in trial_ids]), device=dev)
             if port.sel_stream_np is not None:
                 sel = np.stack([port.sel_stream_np(seed, tr, T)
-                                for tr in range(trials)])  # (trials, T, S)
+                                for tr in trial_ids])  # (trials, T, S)
                 if port.sel_plan is not None:
                     sel = port.sel_plan(sel)
                 self.sel = torch.as_tensor(sel, device=dev)
         if engine.batch_size is not None:
             bkeys = [rngstream.batch_base_key(seed, tr)
-                     for tr in range(trials)]
+                     for tr in trial_ids]
             sizes, B = engine.sizes, engine.batch_size
             self.idx = _Chunked(lambda t0, r: rngstream.batch_blocks(
                 bkeys, t0, r, sizes, B, mixed=engine.batch_wts is not None,
@@ -639,7 +642,7 @@ class FLEngine:
                  participation: str = "uniform", participation_probs=None,
                  mode: str = "sync", async_spec=None, async_weights=None,
                  device=None):
-        check_slice(shard_trials=shard_trials)
+        self.shard_trials = shard_trials
         if payload_dtype not in ("f32", "bf16"):
             raise ValueError(
                 f"payload_dtype must be 'f32' or 'bf16', got {payload_dtype!r}")
@@ -720,10 +723,26 @@ class FLEngine:
         return (None if batch_size is not None and batch_size >= n_data
                 else batch_size)
 
-    def _grads(self, w32: torch.Tensor, idx) -> torch.Tensor:
+    def _grads(self, w32: torch.Tensor, idx, slots=None) -> torch.Tensor:
         """The round's (trials, N, d) f32 device gradients: full batches,
         the drawn (trials, N, B) rows, or the mixed regime's weighted
-        rows."""
+        rows. With ``slots`` = (first, total) the K trials of ``w32`` are
+        trials [first, first + K) of a run of ``total``, and their
+        gradients are computed in that run's layout, the other slots
+        holding zero models: the products and reductions over the trials
+        then have the unsharded run's shapes, so each trial's gradient
+        has its bits (a sum over rows of (N, n, K, C) changes them with
+        K on the CPU)."""
+        if slots is not None:
+            first, total = slots
+            k = w32.shape[0]
+            full = w32.new_zeros((total,) + w32.shape[1:])
+            full[first:first + k] = w32
+            if idx is not None:
+                pad = idx.new_zeros((total,) + idx.shape[1:])
+                pad[first:first + k] = idx
+                idx = pad
+            return self._grads(full, idx)[first:first + k]
         if idx is None:
             return self.task.device_grads(w32, self.xs, self.ys)
         if self.batch_wts is not None:
@@ -745,8 +764,16 @@ class FLEngine:
         T = n_seg * eval_every      # rounds past the last eval are unobserved
         d, N = self.task.dim, self.dep.n_devices
 
-        streams = _Streams(self, port, seed, trials, T, rng)
-        dkeys = [rngstream.dither_base_key(seed, tr) for tr in range(trials)]
+        rank, world = dist.world() if self.shard_trials else (0, 1)
+        if trials % world:
+            raise ValueError(
+                f"shard_trials needs trials ({trials}) divisible by the "
+                f"device count ({world})")
+        per = trials // world
+        ids = range(rank * per, (rank + 1) * per)
+        slots = (rank * per, trials) if world > 1 else None
+        streams = _Streams(self, port, seed, ids, T, rng)
+        dkeys = [rngstream.dither_base_key(seed, tr) for tr in ids]
         radius = (np.inf if self.project_radius is None
                   else float(self.project_radius))
         budget = np.inf if time_budget_s is None else float(time_budget_s)
@@ -755,11 +782,11 @@ class FLEngine:
         layers = None
         if (self.payload_dtype != "f32" or self.fault is not None
                 or self.participation is not None or self.async_ is not None):
-            layers = _Layers(self, seed, trials, T)
+            layers = _Layers(self, seed, ids, T)
 
-        w = self.task.init_params(device=dev).expand(trials, d).clone()
-        t_wall = torch.zeros(trials, dtype=torch.float64, device=dev)
-        live = torch.ones(trials, dtype=torch.bool, device=dev)
+        w = self.task.init_params(device=dev).expand(per, d).clone()
+        t_wall = torch.zeros(per, dtype=torch.float64, device=dev)
+        live = torch.ones(per, dtype=torch.bool, device=dev)
         w_eval = w.clone()
         ws, walls = [w.clone()], [t_wall.clone()]
         for t in range(T):
@@ -767,7 +794,8 @@ class FLEngine:
             # wall-clock reached the budget; its state freezes from there
             active = t_wall < budget
             habs_t, z_t, sel_t, idx_t = streams.round(t)
-            g = self._grads(w.to(torch.float32), idx_t).to(torch.float64)
+            g = self._grads(w.to(torch.float32), idx_t,
+                            slots).to(torch.float64)
             if layers is not None:
                 g = layers.payloads(g, t, habs_t)
             u = (rngstream.dither_blocks(dkeys, t, N, d, device=dev)
@@ -790,6 +818,11 @@ class FLEngine:
                 ws.append(w_eval.clone())
                 walls.append(t_wall.clone())
         W = torch.stack(ws, dim=1)                            # (trials, E, d)
+        walls = torch.stack(walls, 1)                         # (trials, E)
+        if world > 1:
+            # every rank's trials back in trial order
+            W = dist.all_gather_cat(W)
+            walls = dist.all_gather_cat(walls)
         losses, accs = self._evaluate(W)
         opt_err = None
         if w_star is not None:
@@ -797,7 +830,7 @@ class FLEngine:
             opt_err = np.sum((w_np - np.asarray(w_star)) ** 2, axis=-1)
         return TrainLog(scheme=port.name,
                         rounds=np.asarray(eval_rounds, dtype=np.int64),
-                        wall_time_s=torch.stack(walls, 1).mean(0).cpu().numpy(),
+                        wall_time_s=walls.mean(0).cpu().numpy(),
                         global_loss=losses, accuracy=accs,
                         opt_error=opt_err)
 

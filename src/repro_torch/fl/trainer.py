@@ -11,7 +11,8 @@ with an optional wall-clock budget. Runs on the trials-batched engine
 ``FLTrainer`` takes the reference's arguments and hands the mini-batch,
 fault, partial-participation, buffered-async and bf16-payload options to
 the engine, which validates them with the reference's messages; each is
-a strict no-op at its default. ``run(rng="fast")`` draws the fading, the
+a strict no-op at its default. ``shard_trials=True`` lays the trials over
+the ranks of the default process group (``FLEngine``). ``run(rng="fast")`` draws the fading, the
 PS noise and the selection from the counter-based streams on the device
 (the reference's fast mode); ``rng="replay"`` replays its NumPy streams.
 """
@@ -35,7 +36,8 @@ class FLTrainer:
                  clients_per_round: Optional[int] = None,
                  participation: str = "uniform",
                  participation_probs=None, mode: str = "sync",
-                 async_spec=None, async_weights=None, device=None):
+                 async_spec=None, async_weights=None,
+                 shard_trials: bool = False, device=None):
         self.eta = eta
         self.project_radius = project_radius
         self._engine = FLEngine(
@@ -44,7 +46,7 @@ class FLTrainer:
             clients_per_round=clients_per_round, participation=participation,
             participation_probs=participation_probs, mode=mode,
             async_spec=async_spec, async_weights=async_weights,
-            device=device)
+            shard_trials=shard_trials, device=device)
 
     def run(self, aggregator, *, rounds: int, trials: int = 3,
             eval_every: int = 10, seed: int = 0,

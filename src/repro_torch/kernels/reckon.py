@@ -9,7 +9,9 @@ or raises, and a CPU tensor still takes the plain version.
 
 Observers (``observing``) see each such call's operands and results: the
 cost counter charges it their bytes, as the reference's ``hlo_cost``
-charges a custom call.
+charges a custom call. A collective of ``core/dist.py`` on such
+a tensor moves nothing either; its observers (``observing_collectives``)
+see the op, the tensor and the number of ranks.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import contextlib
 import torch
 
 _OBSERVERS: list = []
+_COLLECTIVE_OBSERVERS: list = []
 
 
 def abstract(t: torch.Tensor) -> bool:
@@ -45,3 +48,22 @@ def observing(observe):
         yield
     finally:
         _OBSERVERS.remove(observe)
+
+
+def collective(op: str, t: torch.Tensor, ranks: int) -> torch.Tensor:
+    """Show one reckoned collective ``op`` of ``t`` over ``ranks`` ranks to
+    the collective observers; returns ``t`` (its result's shape)."""
+    for observe in _COLLECTIVE_OBSERVERS:
+        observe(op, t, ranks)
+    return t
+
+
+@contextlib.contextmanager
+def observing_collectives(observe):
+    """Within the block, ``observe(op, tensor, ranks)`` is called on every
+    reckoned collective."""
+    _COLLECTIVE_OBSERVERS.append(observe)
+    try:
+        yield
+    finally:
+        _COLLECTIVE_OBSERVERS.remove(observe)

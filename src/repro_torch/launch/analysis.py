@@ -26,8 +26,11 @@ needs no card and no weights:
   library workspaces (cuBLAS') allocated once a process.
 
 :func:`time_terms` turns the counts into the three terms of a roofline on
-the card's published rates (:data:`H100`); on one card the collective term
-is 0 until the multi-card item (ROADMAP Queue 1 item 10 step 6).
+the card's published rates (:data:`H100`). The collective term is the
+bytes a rank sends in the collectives ``core/dist.py`` reckons
+on tensors without data (a step on an ``abstract_mesh``): a ring
+all-reduce of B bytes over W ranks sends 2(W-1)/W B a rank (and receives
+as much), over the card's NVLink rate in one direction; 0 on one card.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import collections
 import dataclasses
 import math
 import weakref
+from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -54,18 +58,20 @@ class DeviceSpec:
     matmul_flops_per_s: dict       # dtype name -> dense matmul rate
     vector_flops_per_s: float      # every other op
     power_limit_w: float
+    link_bytes_per_s: float        # NVLink, one direction
 
 
 #: NVIDIA's H100 SXM data sheet, dense rates at the full 700 W: bf16 and
 #: f16 matmuls on the tensor cores at 989 TFLOP/s; f32 matmuls at the
 #: 67 TFLOP/s of the f32 pipes, since ``device.py`` turns TF32 off; f64
-#: matmuls on the f64 tensor cores at 67; 3.35 TB/s of HBM3; 80 GB.
+#: matmuls on the f64 tensor cores at 67; 3.35 TB/s of HBM3; 80 GB;
+#: NVLink 4 at 900 GB/s both ways, 450 GB/s each way.
 H100 = DeviceSpec(
     name="NVIDIA H100 80GB HBM3", capacity_bytes=80 * 10**9,
     hbm_bytes_per_s=3.35e12,
     matmul_flops_per_s={"bfloat16": 989e12, "float16": 989e12,
                         "float32": 67e12, "float64": 67e12},
-    vector_flops_per_s=67e12, power_limit_w=700.0)
+    vector_flops_per_s=67e12, power_limit_w=700.0, link_bytes_per_s=450e9)
 
 #: the CUDA caching allocator rounds every block up to this many bytes
 ALLOC_BLOCK = 512
@@ -138,17 +144,28 @@ class OpCounter(TorchDispatchMode):
         self.transcendentals = 0
         self.kernel_calls = collections.Counter()
         self.kernel_bytes = 0
-        self._observing = kernel_reckon.observing(self._on_kernel)
+        self.collective_calls = collections.Counter()
+        self.collective_bytes = collections.Counter()   # sent a rank
+        self._observing = (kernel_reckon.observing(self._on_kernel),
+                           kernel_reckon.observing_collectives(
+                               self._on_collective))
 
     def __enter__(self):
-        self._observing.__enter__()
+        for o in self._observing:
+            o.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
-            self._observing.__exit__(None, None, None)
+            for o in reversed(self._observing):
+                o.__exit__(None, None, None)
+
+    def _on_collective(self, op, t, ranks):
+        # a ring all-reduce, the only collective reckoned
+        self.collective_calls[op] += 1
+        self.collective_bytes[op] += 2 * (ranks - 1) * _nbytes(t) // ranks
 
     def _on_kernel(self, name, inputs, outputs):
         nbytes = tensor_bytes((inputs, outputs))
@@ -284,18 +301,23 @@ def cost_summary(counter: OpCounter) -> dict:
             "transcendentals": float(counter.transcendentals)}
 
 
-def collective_stats() -> dict:
-    """``CollectiveStats.summary()``'s keys: one card moves nothing over
-    links (ROADMAP Queue 1 item 10 step 6 fills this in)."""
-    return {"total_bytes": 0.0, "per_op_bytes": {}, "per_op_count": {}}
+def collective_stats(counter: Optional[OpCounter] = None) -> dict:
+    """``CollectiveStats.summary()``'s keys: the bytes a rank sends in the
+    counted collectives, by op (none on one card)."""
+    if counter is None:
+        return {"total_bytes": 0.0, "per_op_bytes": {}, "per_op_count": {}}
+    return {"total_bytes": float(sum(counter.collective_bytes.values())),
+            "per_op_bytes": {k: float(v) for k, v in
+                             counter.collective_bytes.items()},
+            "per_op_count": dict(counter.collective_calls)}
 
 
 def time_terms(counter: OpCounter, spec: DeviceSpec = H100) -> dict:
     """The three terms of the step's least time on ``spec``, in seconds:
     compute (each dtype's matmul FLOPs at its matmul rate, the other op
     flops at the vector rate), memory (bytes accessed over the HBM rate)
-    and collective (0 on one card); ``bound_s`` is the largest, named by
-    ``dominant``."""
+    and collective (the bytes a rank sends over the link rate; 0 on one
+    card); ``bound_s`` is the largest, named by ``dominant``."""
     matmul = sum(counter.matmul_flops.values())
     compute = sum(f / spec.matmul_flops_per_s.get(dt,
                                                    spec.vector_flops_per_s)
@@ -303,7 +325,8 @@ def time_terms(counter: OpCounter, spec: DeviceSpec = H100) -> dict:
     compute += (counter.op_flops - matmul) / spec.vector_flops_per_s
     terms = {"compute": compute,
              "memory": counter.bytes_accessed / spec.hbm_bytes_per_s,
-             "collective": 0.0}
+             "collective": sum(counter.collective_bytes.values())
+             / spec.link_bytes_per_s}
     dominant = max(terms, key=terms.get)
     return {**{f"{k}_s": v for k, v in terms.items()},
             "bound_s": terms[dominant], "dominant": dominant}

@@ -48,9 +48,12 @@ DEFAULT_OUT = Path(__file__).resolve().parents[3] / "experiments" / \
 MESH = "1card"
 #: the train launcher's default number of FL clients
 N_CLIENTS = 4
-MULTI_CARD = ("meshes of more than one card (--multi-pod, --both-meshes, "
-              "--mesh-data) are not ported yet: ROADMAP Queue 1 item 10 "
-              "step 6 (multi-card)")
+MULTI_CARD = ("the dry run's multi-card meshes (--multi-pod, "
+              "--both-meshes, --mesh-data) are not ported yet: ROADMAP "
+              "Queue 1 item 10 step 6, part B (after the logical axes and "
+              "sharding.py, the expert-parallel MoE, the 'model' axis and "
+              "the serve steps on a mesh); scripts/reckon_fl_steps.py "
+              "--ranks reckons one rank of the FL step's client mesh")
 
 
 @dataclasses.dataclass
@@ -74,10 +77,12 @@ def _empty(spec: dict) -> dict:
 
 def build_bundle(arch: str, shape_id, *, aggregator: str = "ota",
                  flags: Optional[dict] = None,
-                 batch: Optional[int] = None):
+                 batch: Optional[int] = None, mesh=None):
     """(Bundle, "") for the cell at ``batch`` (default the shape's), or
     (None, reason) where the shape does not apply to the arch.
-    ``shape_id`` names one of ``SHAPES`` or is an ``InputShape``."""
+    ``shape_id`` names one of ``SHAPES`` or is an ``InputShape``. A train
+    cell with a ``mesh`` (``launch.mesh.abstract_mesh``) is one rank's
+    step with one client a rank, its collectives reckoned."""
     shape = SHAPES[shape_id] if isinstance(shape_id, str) else shape_id
     cfg0 = get_config(arch)
     ok, reason = applicable(cfg0, shape)
@@ -88,11 +93,11 @@ def build_bundle(arch: str, shape_id, *, aggregator: str = "ota",
     model = make_model(cfg, seed=None, device="meta")
     params = list(model.parameters())
     if shape.kind == "train":
-        step = make_train_step(model, n_clients=N_CLIENTS,
+        step = make_train_step(model, n_clients=N_CLIENTS, mesh=mesh,
                                aggregator=aggregator, batch=batch,
                                seq=shape.seq_len)
         inputs = _empty(batch_spec(cfg, batch, shape.seq_len))
-        fl = fl_round_arrays(N_CLIENTS)
+        fl = fl_round_arrays(N_CLIENTS if mesh is None else mesh)
         return Bundle("train", cfg, model, batch, {},
                       lambda: step(inputs, fl, rngstream.prng_key(0)),
                       (params, inputs)), ""
@@ -201,7 +206,7 @@ def run_one(arch: str, shape_id: str, *, aggregator: str = "ota",
                 flags=bundle.flags,
                 n_clients=N_CLIENTS if bundle.kind == "train" else None,
                 memory=memory, cost=analysis.cost_summary(counter),
-                collectives=analysis.collective_stats(),
+                collectives=analysis.collective_stats(counter),
                 param_count=param_count(bundle.model),
                 active_param_count=active_param_count(bundle.cfg,
                                                       bundle.model),

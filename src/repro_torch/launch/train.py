@@ -1,15 +1,20 @@
-"""FL LM training launcher on one card (counterpart of
-``repro.launch.train``).
+"""FL LM training launcher (counterpart of ``repro.launch.train``).
 
 Runs the whole pipeline: the offline OTA design from the channel
 statistics (``design_ota_direct``) -> per-round fading and participation
-thresholds -> the FL train step with the wireless collective over
-``--n-clients`` clients (the reference's mesh data axis) -> checkpoints.
+thresholds -> the FL train step with the wireless collective -> checkpoints.
+On one card the clients are ``--n-clients`` (default 4), run one after
+another; under ``torchrun`` they are the ranks, one client a rank, as the
+reference's are its devices (``data_axis=len(jax.devices())``): every
+rank draws the same global batch and keeps its client's rows, and rank 0
+logs and writes the checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch tinyllama-1.1b --aggregator digital --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --no-reduced --steps 3        # on the card
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --arch tinyllama-1.1b --steps 3        # 2 ranks
 
 ``--arch`` takes the reduced (``scaled_down()``, f32) variant unless
 ``--no-reduced``; without ``--arch`` a small llama-style model of
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -38,6 +44,8 @@ from ..core.ota_design import OTADesignSpec, design_ota_direct
 from ..models import make_model, param_count
 from ..models.common import ModelConfig
 from ..optim.sgd import SGDConfig
+from . import distributed
+from .mesh import client_index, make_host_mesh, n_clients as mesh_clients
 from .steps import fl_round_arrays, make_train_step
 
 
@@ -86,9 +94,9 @@ class TrainLog:
 
 def train(model, *, aggregator: str = "ota", steps: int = 100,
           batch: int = 8, seq: int = 128, n_clients: int = 4,
-          eta: float = 1.0, momentum: float = 0.0, g_max: float = 10.0,
-          seed: int = 0, ckpt_dir: Optional[str] = None,
-          ckpt_every: int = 50,
+          mesh=None, eta: float = 1.0, momentum: float = 0.0,
+          g_max: float = 10.0, seed: int = 0,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           log: Callable[[str], None] = print) -> TrainLog:
     """Train ``model`` for ``steps`` FL rounds on Markov token batches from
     ``np.random.default_rng(seed)``, as the reference launcher does: OTA
@@ -96,7 +104,8 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
     (seed 7), weights gamma_m / mean(gamma), alpha / mean(gamma), noise
     scale 1e-2 sqrt(N0)/alpha, 255 quantizer levels, key t at step t.
     The batches are tokens only, as the reference's, so an audio or VLM
-    model raises ValueError."""
+    model raises ValueError. With a ``mesh`` the clients are its ranks
+    (``n_clients`` is ignored), and only client 0 logs and checkpoints."""
     cfg = model.cfg
     if cfg.arch_type in ("audio", "vlm"):
         raise ValueError(
@@ -106,10 +115,17 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
             f"train it through launch.steps.make_train_step with them in "
             f"the batch")
     dev = model.device
+    lead = mesh is None or client_index(mesh) == 0
+    if mesh is not None:
+        n_clients = mesh_clients(mesh)
+    if not lead:
+        log = _quiet
     dep, ota_params = design(n_clients, eta=eta, g_max=g_max)
-    log(f"clients={n_clients} p_m="
+    log(f"{'mesh=' + str(mesh.shape) + ' ' if mesh is not None else ''}"
+        f"clients={n_clients} p_m="
         f"{np.round(ota_params.participation_levels(dep.lambdas), 3)}")
-    step = make_train_step(model, n_clients=n_clients, aggregator=aggregator,
+    step = make_train_step(model, n_clients=n_clients, mesh=mesh,
+                           aggregator=aggregator,
                            sgd=SGDConfig(eta=eta, momentum=momentum),
                            batch=batch, seq=seq)
     fading = FadingProcess(dep, seed=7)
@@ -123,7 +139,8 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
             rng, model.cfg.vocab_size, batch, seq).items()}
         chis = (fading.gains(t) >= taus).astype(np.float64)
         fl = fl_round_arrays(
-            n_clients, gammas=ota_params.gammas / gam_scale, chis=chis,
+            n_clients if mesh is None else mesh,
+            gammas=ota_params.gammas / gam_scale, chis=chis,
             alpha=ota_params.alpha / gam_scale,
             noise_scale=np.sqrt(ota_params.noise_psd) / ota_params.alpha
             * 1e-2, levels=255.0)
@@ -139,9 +156,13 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
         if t % 10 == 0 or t == steps - 1:
             log(f"step {t:4d}  loss {loss:.4f}  "
                 f"({time.perf_counter() - t0:.1f}s)")
-        if ckpt_dir and (t + 1) % ckpt_every == 0:
+        if ckpt_dir and (t + 1) % ckpt_every == 0 and lead:
             log(f"checkpoint -> {save_checkpoint(ckpt_dir, t + 1, model)}")
     return out
+
+
+def _quiet(_: str) -> None:
+    pass
 
 
 def main(argv=None) -> None:
@@ -154,7 +175,9 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--n-clients", type=int, default=4)
+    ap.add_argument("--n-clients", type=int, default=None,
+                    help="clients on one card (default 4); under torchrun "
+                         "the clients are the ranks")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--layers", type=int, default=6)
     ap.add_argument("--vocab", type=int, default=1024)
@@ -171,16 +194,25 @@ def main(argv=None) -> None:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    mesh, say = None, print
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank = distributed.init_from_env(args.device)
+        if args.n_clients not in (None, rank.world):
+            raise SystemExit(f"--n-clients {args.n_clients}: under torchrun "
+                             f"the clients are the {rank.world} ranks")
+        mesh = make_host_mesh(device_type=rank.device.type)
+        say = print if rank.rank == 0 else _quiet
     cfg = build_cfg(args)
     model = make_model(cfg, seed=args.seed, device=args.device)
-    print(f"model: {cfg.name}  params={param_count(model):,}  "
-          f"on {model.device}")
+    say(f"model: {cfg.name}  params={param_count(model):,}  "
+        f"on {model.device}")
     train(model, aggregator=args.aggregator, steps=args.steps,
-          batch=args.batch, seq=args.seq, n_clients=args.n_clients,
-          eta=args.eta, momentum=args.momentum, g_max=args.g_max,
-          seed=args.seed, ckpt_dir=args.ckpt_dir,
-          ckpt_every=args.ckpt_every)
-    print("done.")
+          batch=args.batch, seq=args.seq,
+          n_clients=args.n_clients or 4, mesh=mesh, eta=args.eta,
+          momentum=args.momentum, g_max=args.g_max, seed=args.seed,
+          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, log=say)
+    say("done.")
+    distributed.leave()
 
 
 if __name__ == "__main__":

@@ -51,7 +51,9 @@ from .common import (ModelConfig, ParamInit, ParamModule, gelu, rms_norm,
 
 EP_NOT_PORTED = ("the expert-parallel MoE route (moe_impl='ep' under a mesh "
                  "or a manual shard) is not ported yet (ROADMAP Queue 1 "
-                 "item 10 step 6: multi-card); without a mesh 'ep' runs "
+                 "item 10 step 6, part B: after the logical axes on the "
+                 "parameters and sharding.py, the expert-parallel MoE with "
+                 "_a2a_quantized and skip_psum); without a mesh 'ep' runs "
                  "the auto route")
 NEG_INF = -1e30
 

@@ -186,7 +186,7 @@ def check_layered_round(case, rounds=6, trials=2, **kw):
                                     **kw)
     engine = FLEngine(case["port_task"], case["port_ds"], case["port_dep"],
                       case["eta"], device="cpu", **port_kwargs(kw))
-    layers = _Layers(engine, SEED, trials, rounds)
+    layers = _Layers(engine, SEED, range(trials), rounds)
     states = []
     for tr in range(trials):
         st = dict(trial=tr, bf16=kw.get("payload_dtype") == "bf16")

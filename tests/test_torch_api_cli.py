@@ -18,8 +18,10 @@ from pathlib import Path
 
 import pytest
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.api import cli, execute, scenarios
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

@@ -23,10 +23,12 @@ import numpy as np
 import pytest
 
 from _torch_api_parity import check_probes, digital_gate, execute_both
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.api import materialize as mat
 from repro_torch.api import scenarios
 from repro_torch.core import digital_design
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 OBJ_RTOL = 1e-6
 KAPPA_RTOL = 1e-6

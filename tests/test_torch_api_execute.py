@@ -28,13 +28,15 @@ import numpy as np
 import pytest
 
 from _torch_api_parity import execute_both
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.api import execute, scenarios
 from repro_torch.api import materialize as mat
 from repro_torch.api.results import dump_json
 from repro_torch.core import baselines as B
 from repro_torch.core import ota_design
 from repro_torch.fl.trainer import FLTrainer
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # the module (the package attribute ``repro_torch.api.execute`` is the
 # function)
@@ -284,8 +286,8 @@ def test_trainer_takes_the_reference_signature(ref):
     """The reference's ``FLTrainer`` arguments: inert at their defaults
     (and where the reference leaves them inert), validated with the
     reference's errors, the layers, mini-batches and ``rng="fast"`` run;
-    one engine, on one card (``shard_trials`` refused, naming ROADMAP
-    Queue 1 item 10)."""
+    one engine; ``shard_trials`` passed through to it (without a process
+    group, the one-rank mesh: the unsharded run)."""
     from repro_torch.core.async_fl import AsyncSpec
     spec = scenarios.sweep_smoke().base
     ctx = mat.materialize(spec, device="cpu")
@@ -317,9 +319,8 @@ def test_trainer_takes_the_reference_signature(ref):
     log = trainer.run(agg, rng="fast", **run)
     assert np.all(np.isfinite(log.global_loss))
     assert not np.array_equal(log.global_loss, base.global_loss)
-    from repro_torch.fl import FLEngine
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FLEngine(*args, device="cpu", shard_trials=True)
+    log = FLTrainer(*args, shard_trials=True, device="cpu").run(agg, **run)
+    assert (log.global_loss == base.global_loss).all()
     for backend in ("numpy", "jax", "torch"):
         with pytest.raises(ValueError, match="one engine"):
             trainer.run(agg, backend=backend, **run)

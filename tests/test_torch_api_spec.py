@@ -19,13 +19,15 @@ import json
 import numpy as np
 import pytest
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.api import (SCHEMA_VERSION, ScenarioSpec, SweepSpec, plan,
                              scenarios, schemes, spec_from_dict)
 from repro_torch.api.results import dump_json
 from repro_torch.core import async_fl, faults
 from repro_torch.core.channel import (WirelessConfig, make_deployment,
                                       participation_probability)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NAMES = scenarios.names()
 

@@ -20,9 +20,11 @@ import numpy as np
 import pytest
 
 from _torch_api_parity import execute_both
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.api import cli, scenarios
 from repro_torch.api.spec import SweepSpec
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 OBJ_RTOL = 1e-6
 OTA_RTOL = 1e-5

@@ -25,10 +25,12 @@ import torch
 from _torch_layers import (FULL_FAULT, RUN, SEED, assert_ota_close,
                            check_layered_round, digital_gate, make_case,
                            run_both, run_port)
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import async_fl as A
 from repro_torch.core import rngstream
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ASPEC = dict(buffer_rounds=3, arrival_rate=0.6, rate_heterogeneity=1.0,
              staleness_discount=0.8)

@@ -19,13 +19,15 @@ import pytest
 import torch
 
 import _torch_layers as L
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import rngstream
 from repro_torch.data import DeviceDataset, partition_iid
 from repro_torch.fl import (FLEngine, MLPTask, SoftmaxRegressionTask,
                             SyntheticHighDimTask)
 from repro_torch.fl import engine as engine_mod
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 GRAD_TOL = 1e-6
 #: device sizes of the unequal cell (N = 6)
@@ -290,7 +292,9 @@ def test_ota_minibatch_trajectory_matches_reference(case, unequal, cell, B,
 
 def test_engine_regimes(case, unequal):
     """Which regime each (sizes, B) takes, the mixed weights, and the
-    global loss over the real rows only."""
+    global loss over the real rows only; ``shard_trials=True`` without a
+    process group runs the one-rank mesh: the unsharded run, to the bit
+    (``tests/test_torch_mesh.py`` runs it over 2 and 4 ranks)."""
     def engine(c, B):
         return FLEngine(c["port_task"], c["port_ds"], c["port_dep"],
                         c["eta"], batch_size=B, device="cpu")
@@ -312,9 +316,14 @@ def test_engine_regimes(case, unequal):
     np.testing.assert_array_equal(wts[0], np.float32(1 / 100))
     with pytest.raises(ValueError, match="needs a mini-batch size"):
         engine(unequal, None)
-    with pytest.raises(NotImplementedError, match="item 10 step 6"):
-        FLEngine(case["port_task"], case["port_ds"], case["port_dep"],
-                 case["eta"], shard_trials=True, device="cpu")
+    agg = interop.scheme(unequal["ota"])
+    run = dict(rounds=4, trials=2, eval_every=2, seed=1)
+    sharded = FLEngine(unequal["port_task"], unequal["port_ds"],
+                       unequal["port_dep"], unequal["eta"], batch_size=50,
+                       shard_trials=True, device="cpu")
+    a, b = ragged.run(agg, **run), sharded.run(agg, **run)
+    np.testing.assert_array_equal(a.global_loss, b.global_loss)
+    np.testing.assert_array_equal(a.wall_time_s, b.wall_time_s)
 
 
 def test_digital_minibatch_gate(case):

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.models import (decode_step, layers as L, loss_fn,
                                 make_model, prefill)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 OP_REL = 1e-6
 REL = 1e-4

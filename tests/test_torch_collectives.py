@@ -26,7 +26,9 @@ Tolerances:
     the terms' magnitudes (XLA's psum over four CPU devices need not add
     in client order; ``pytest -s`` prints the gap it showed), plus the
     payloads' 1 ulp of m |w_m| each (digital) or the normals' 4 ulp
-    (OTA).
+    (OTA). The mesh form over four ranks (``distributed.spawn``, gloo on
+    the CPU, one rank a client) is held to the same outputs under the same
+    tolerances; ``tests/test_torch_mesh.py`` holds it to the one-card form.
 """
 import os
 import subprocess
@@ -37,10 +39,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+import _torch_ranks
+from _torch_ranks import LEAVES, psum_inputs as _inputs, psum_round as _round
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.core import rngstream
-from repro_torch.core.collectives import WirelessRound, wireless_psum
+from repro_torch.core.collectives import wireless_psum
 from repro_torch.kernels import dithered_quantize, ops, ref as kref
+from repro_torch.launch import distributed
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUM_ULPS = 2.0
@@ -98,42 +105,15 @@ REF_SRC = textwrap.dedent('''
         np.savez(sys.argv[2], **run_all(dict(np.load(sys.argv[1]))))
 ''')
 
-LEAVES = {"embed": (96, 16), "final_norm": (16,),
-          "groups.b0.mlp.w_gate": (3, 16, 40), "lm_head": (16, 96)}
-
-
 def _bits(a) -> np.ndarray:
     a = np.asarray(a)
     return a.view(np.uint64 if a.dtype == np.float64 else np.uint32)
-
-
-def _inputs(n, seed=0):
-    rng = np.random.default_rng([n, seed])
-    inp = {"n": n, "alpha": np.float32(2.5), "noise_scale": np.float32(1e-2),
-           "seed": 11,
-           "weight": np.array([0.5, 0.0, 1.5, 1.0][:n], np.float32),
-           "levels": np.array([255.0, 15.0, 0.0, 1023.0][:n], np.float32)}
-    if n == 1:
-        inp["weight"] = np.array([1.5], np.float32)
-    for name, shape in LEAVES.items():
-        g = rng.standard_normal((n,) + shape) * rng.uniform(0.1, 5.0)
-        inp["g/" + name] = g.astype(np.float32)
-    inp["g/final_norm"][0] = 0.0          # a zero leaf: m = 0 gives exact 0
-    return inp
 
 
 def _clients(inp):
     names = sorted(LEAVES)
     return [[torch.from_numpy(inp["g/" + k][m]) for k in names]
             for m in range(int(inp["n"]))]
-
-
-def _round(inp, weight=None):
-    return WirelessRound(
-        weight=torch.from_numpy(inp["weight"] if weight is None else weight),
-        alpha=torch.tensor(inp["alpha"]),
-        noise_scale=torch.tensor(inp["noise_scale"]),
-        levels=torch.from_numpy(inp["levels"]))
 
 
 def _assert_ulps(got, want, scale, ulps):
@@ -287,8 +267,11 @@ def _codes(out, m, w, levels):
     return np.round((out.astype(np.float64) / w + m) / safe)
 
 
-def _check_psum(inp, want):
-    """The port's three modes against the reference's outputs ``want``."""
+def _check_psum(inp, want, mesh_out=None):
+    """The port's three modes against the reference's outputs ``want``:
+    the one-card form, or the mesh form's outputs ``mesh_out`` (one dict
+    a rank, in rank order: the sums of each mode, and each client's own
+    digital payload as ``own``)."""
     names = sorted(LEAVES)
     n = int(inp["n"])
     key = rngstream.prng_key(int(inp["seed"]))
@@ -297,8 +280,11 @@ def _check_psum(inp, want):
     inv_alpha = 1.0 / float(inp["alpha"])
     worst = {}
     for mode in ("ideal", "ota", "digital"):
-        got = wireless_psum(iter(clients), _round(inp), key, mode=mode,
-                            use_kernel=False)
+        if mesh_out is None:
+            got = wireless_psum(iter(clients), _round(inp), key, mode=mode,
+                                use_kernel=False)
+        else:
+            got = [torch.from_numpy(a) for a in mesh_out[0][mode]]
         assert [g.dtype for g in got] == [torch.float32] * len(names)
         for j, k in enumerate(names):
             g = inp["g/" + k].astype(np.float64)
@@ -333,8 +319,11 @@ def _check_psum(inp, want):
             continue
         alone = np.zeros(n, np.float32)
         alone[m] = inp["weight"][m]
-        got = wireless_psum(iter(clients), _round(inp, alone), key,
-                            mode="digital", use_kernel=False)
+        if mesh_out is None:
+            got = wireless_psum(iter(clients), _round(inp, alone), key,
+                                mode="digital", use_kernel=False)
+        else:
+            got = [torch.from_numpy(a) for a in mesh_out[m]["own"]]
         lv = float(inp["levels"][m])
         for j, k in enumerate(names):
             mine = got[j].numpy()
@@ -380,6 +369,22 @@ def ref4(tmp_path_factory):
 
 def test_wireless_psum_four_clients_matches_reference(ref4):
     _check_psum(*ref4)
+
+
+@pytest.fixture(scope="module")
+def mesh4(tmp_path_factory):
+    """The mesh form over 4 ranks, one client a rank, on ``ref4``'s
+    inputs (started when the module's first test asks for it)."""
+    jobs = [("psum", "psum_job", (_inputs(4),))]
+    out = distributed.spawn(_torch_ranks.run_jobs, 4, device="cpu",
+                            store_dir=tmp_path_factory.mktemp("mesh4"),
+                            args=(jobs,))
+    return [r["psum"] for r in out]
+
+
+def test_wireless_psum_mesh_four_ranks_matches_reference(ref4, mesh4):
+    assert [r["client"] for r in mesh4] == [0, 1, 2, 3]
+    _check_psum(*ref4, mesh_out=mesh4)
 
 
 @pytest.mark.parametrize("mode", ["ideal", "ota", "digital"])

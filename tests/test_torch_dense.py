@@ -20,13 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.models import layers as L
 from repro_torch.models import (loss_fn, make_batch, make_model,
                                 param_count, prefill)
 from repro_torch.models.common import ModelConfig, rope, swiglu
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REL = 1e-5
 SMALL = dict(name="dense-small", arch_type="dense", n_layers=2, d_model=64,

@@ -23,7 +23,7 @@ OTA within 1e-5, digital within 4 combined Monte-Carlo standard errors
 import numpy as np
 import pytest
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import baselines as B
 from repro_torch.core import digital_design, ota_design, sca_torch
@@ -34,8 +34,9 @@ PARITY_RTOL = 1e-3
 REF_RTOL = 1e-6
 
 # the SciPy SCA oracle must run clean, as in the reference's test
-pytestmark = pytest.mark.filterwarnings(
-    "error:Values in x were outside bounds:RuntimeWarning")
+pytestmark = [pytest.mark.filterwarnings(
+    "error:Values in x were outside bounds:RuntimeWarning"),
+    pytest.mark.usefixtures("one_thread")]
 
 
 def _weight_grid(n, scales=(0.3, 3.0)):

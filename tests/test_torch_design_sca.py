@@ -8,13 +8,14 @@ the bit.
 import numpy as np
 import pytest
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import bounds, digital_design, ota_design
 
 # as in the reference's design tests: the oracle must run clean
-pytestmark = pytest.mark.filterwarnings(
-    "error:Values in x were outside bounds:RuntimeWarning")
+pytestmark = [pytest.mark.filterwarnings(
+    "error:Values in x were outside bounds:RuntimeWarning"),
+    pytest.mark.usefixtures("one_thread")]
 
 
 @pytest.fixture(scope="module")

@@ -20,11 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core.digital import digital_round
 from repro_torch.fl import FLEngine, FLTrainer, MLPTask
 from repro_torch.kernels import ops, payload
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N, SEED = 10, 9
 RUN = dict(rounds=6, trials=1, eval_every=2, seed=SEED)

@@ -18,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import kernels
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as kref
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SHAPES = [(1, 16, 8), (2, 300, 200), (3, 256, 128), (2, 1024, 64),
           (1, 37, 129)]

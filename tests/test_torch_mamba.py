@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, REGISTRY, get_config
 from repro_torch.launch import serve as serve_mod
@@ -30,6 +30,8 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import (decode_step, layers as L, make_batch,
                                 make_model, param_count, prefill)
 from repro_torch.models.common import ParamInit, rms_norm
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCH = "falcon-mamba-7b"
 REL = 1e-4

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.fl import MLPTask, SoftmaxRegressionTask
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SIZES = [(64, 8, 3, 20), (3072, 48, 2, 100)]      # (F, H, devices, samples)
 SIZE_IDS = ["small", "fig3-width"]

@@ -19,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import kernels
 from repro_torch.core import rngstream
 from repro_torch.kernels import ops, ota_combine, ota_combine_keyed
 from repro_torch.kernels import ref as kref
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TYPES = {"f32": (np.float32, torch.float32),
          "f64": (np.float64, torch.float64)}

@@ -24,11 +24,13 @@ import torch
 from _torch_layers import (FULL_FAULT, SEED, assert_ota_close,
                            check_layered_round, digital_gate, make_case,
                            run_both, run_port)
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import participation as P
 from repro_torch.core import rngstream
 from repro_torch.core.ota import expected_participation
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

@@ -24,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.kernels import (dithered_quantize_rows, ops, payload,
                                  packed_weighted_sum, quantize_pack_rows,
                                  ref as plain, unpack_dequant_rows)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DTYPES = {"f64": (np.float64, torch.float64),
           "f32": (np.float32, torch.float32)}

@@ -19,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_reference import one_thread  # noqa: F401  (module fixture)
 from repro_torch.kernels import ref as plain
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DTYPES = {"f64": (torch.float64, torch.int64),
           "f32": (torch.float32, torch.int32)}

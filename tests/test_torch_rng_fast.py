@@ -18,11 +18,13 @@ import pytest
 import torch
 
 import _torch_layers as L
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import channel, rngstream
 from repro_torch.fl import engine as engine_mod
 from repro_torch.fl.engine import scheme_port
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NORMAL64_ULPS = 3
 NOISE_ULPS = 3

@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.core import channel, rngstream
 from repro_torch.data import (SyntheticSpec, make_classification_dataset,
                               partition_by_class)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SEEDS = [0, 5, 2 ** 31 + 7, 2 ** 32 - 1, 2 ** 40 + 3]
 

@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import baselines as B
 from repro_torch.core.digital import digital_round
 from repro_torch.core.ota import ota_round
 from repro_torch.fl.engine import scheme_port
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N, D_IMG, TRIALS = 6, (8, 8, 1), 2
 

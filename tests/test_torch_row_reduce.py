@@ -22,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.kernels import ops, ref as plain, row_maxabs_sumsq
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DIMS = (1, 7, 650, 7850, 70001)
 TYPES = {"f64": (np.float64, torch.float64, None),

@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.core import digital_design, ota_design, sca_torch
 from repro_torch.core.bounds import ObjectiveWeights
 from repro_torch.core.channel import WirelessConfig, make_deployment
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 f64 = torch.float64
 

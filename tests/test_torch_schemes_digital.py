@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import baselines as B
 from repro_torch.core import rngstream
@@ -38,6 +38,8 @@ from repro_torch.core.digital import (capacity_rate, greedy_bit_alloc,
 from repro_torch.fl import FLTrainer, SoftmaxRegressionTask
 from repro_torch.fl.engine import scheme_port
 from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N, TRIALS, ROUNDS, SEED = 6, 2, 6, 5
 RUN = dict(rounds=20, trials=2, eval_every=10, seed=SEED)

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.core import baselines as B
 from repro_torch.core.ota import (bbfl_round, opc_ota_comp_eta,
@@ -29,6 +29,8 @@ from repro_torch.core.ota import (bbfl_round, opc_ota_comp_eta,
                                   uniform_gamma_min_variance)
 from repro_torch.fl import FLTrainer, SoftmaxRegressionTask
 from repro_torch.fl.engine import scheme_port
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N, TRIALS, ROUNDS = 6, 2, 12
 RUN = dict(rounds=20, trials=2, eval_every=10, seed=5)

@@ -23,8 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.kernels import ops, ref as plain, selective_scan
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATOL = 3e-5
 # tests/test_kernels.py's shapes, plus ragged S and D with the largest n

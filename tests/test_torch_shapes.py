@@ -7,9 +7,11 @@ import dataclasses
 
 import pytest
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import shapes as S
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _fields(cfg) -> dict:

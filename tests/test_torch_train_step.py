@@ -6,7 +6,10 @@ reference, on a small llama-style model in f32 (2 layers, d_model 64,
 Three steps of the train step under each aggregator, from the same
 weights and token batches, against ``repro.launch.steps.make_train_step``:
 one client in this process, four clients (the reference's mesh data axis
-of 4 JAX CPU devices) in a subprocess. Tolerances:
+of 4 JAX CPU devices) in a subprocess, both on one card's form and on the
+mesh form over four ranks (``distributed.spawn``, gloo on the CPU, one
+client a rank; ``tests/test_torch_mesh.py`` holds it to the one-card form
+bit for bit at two ranks). Tolerances:
   * losses within rtol 1e-5; parameters within 1e-5 of the largest
     magnitude (gradients differ in the last ulps: XLA fuses and contracts,
     torch rounds op by op);
@@ -31,12 +34,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks
 from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.core import bounds, channel, ota_design, rngstream
-from repro_torch.launch import train as train_mod
+from repro_torch.launch import distributed, train as train_mod
 from repro_torch.launch.steps import fl_round_arrays, make_train_step
 from repro_torch.models import make_model
 from repro_torch.models.common import ModelConfig
@@ -129,13 +133,18 @@ def _port_run(inp, directory, agg, n):
     return model, losses
 
 
-def _check_run(inp, directory, agg, n, want_losses):
-    model, losses = _port_run(inp, directory, agg, n)
+def _check_run(inp, directory, agg, n, want_losses, got=None):
+    """The port's run (``got`` = (losses, state dict), else three one-card
+    steps) against the reference's losses and final parameters."""
+    if got is None:
+        model, losses = _port_run(inp, directory, agg, n)
+        state = model.state_dict()
+    else:
+        losses, state = got
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     want = _port_model(os.path.join(directory, agg))
     gaps, scale = [], 0.0
-    for (k, a), b in zip(model.state_dict().items(),
-                         want.state_dict().values()):
+    for (k, a), b in zip(state.items(), want.state_dict().values()):
         gaps.append((a - b).abs().reshape(-1))
         scale = max(scale, float(b.abs().max()))
     gaps = torch.cat(gaps)
@@ -190,6 +199,31 @@ def test_train_step_one_client_matches_reference(ref1, agg):
 def test_train_step_four_clients_matches_reference(ref4, agg):
     inp, d, losses = ref4
     _check_run(inp, d, agg, 4, losses[agg])
+
+
+@pytest.fixture(scope="module")
+def mesh4(ref4, tmp_path_factory):
+    """Three mesh steps a aggregator over 4 ranks, one client a rank, from
+    the reference's initial weights and on its inputs."""
+    inp, d, _ = ref4
+    jobs = [("train", "train_job", (("checkpoint_model", CFG, d), inp, AGGS,
+                                    STEPS, BATCH, SEQ, ETA))]
+    out = distributed.spawn(_torch_ranks.run_jobs, 4, device="cpu",
+                            store_dir=tmp_path_factory.mktemp("mesh4"),
+                            args=(jobs,))
+    return [r["train"] for r in out]
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_train_step_four_ranks_matches_reference(ref4, mesh4, agg):
+    """The mesh step at 4 ranks within this file's tolerances of the
+    reference's 4-device run; the 4 ranks' parameters bit-identical."""
+    inp, d, losses = ref4
+    first = mesh4[0][agg]
+    for r in mesh4[1:]:
+        assert r[agg][0] == first[0]
+        assert all(torch.equal(v, r[agg][1][k]) for k, v in first[1].items())
+    _check_run(inp, d, agg, 4, losses[agg], got=first)
 
 
 def test_train_step_checks_and_counts(ref1):

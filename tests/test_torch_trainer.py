@@ -20,11 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_reference import ref  # noqa: F401  (module-scoped fixture)
+from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 import repro_torch
 from repro_torch import interop
 from repro_torch.core.async_fl import AsyncSpec
 from repro_torch.fl import FLTrainer, SoftmaxRegressionTask
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N = 6
 RUN = dict(rounds=20, trials=2, eval_every=10, seed=5)
