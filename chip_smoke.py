@@ -206,6 +206,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      experts layer 0 routed to, the share of assignments capacity
      dropped and the largest hidden magnitude after the last layer (at
      4 x 512 recorded in the repeated prefill, at 32,768 in the run);
+     "moe_ep_reference": on the same model, phase 13's expert-parallel
+     serve done on one card, each rank's 2 rows of 4 x 64 prompt tokens
+     as a batch of its own, prefill and 8 greedy decode steps, kept on
+     the host;
    then the audio and VLM front ends, which launch no kernel either
    (their reference is jnp code):
      the main paths "whisper-tiny serve" (4 encoder and 4 decoder
@@ -329,7 +333,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``shard_trials=True``, 40 rounds, every round evaluated: exactly 40
    ``ota_combine`` / 40 ``dithered_quantize_rows`` a rank, every rank
    the same run, held against rank 0's one-rank run (OTA within 1e-5 a
-   trial and round; digital to the bit). The lines say that seconds of
+   trial and round; digital to the bit); then the expert-parallel MoE
+   (``launch/sharding.py``, ``moe_impl="ep"``, ``core.dist.all_to_all``
+   through the pinned host buffers): "qwen3-moe-30b-a3b mesh train
+   ideal|ota|digital (EP, 4 layers)", full width cut to 4 of 48 layers,
+   one step each of 8 x 128 tokens from the same weights, client weights
+   1, OTA at noise 0, each rank holding 64 of the 128 experts a layer:
+   exactly 15 ``ota_combine_keyed`` / 15 ``dithered_quantize`` a rank
+   (one a reference leaf), the ranks' replicated leaves identical by a
+   fingerprint, the loss within 1e-5 of the one-card 2-client auto
+   step's, and each leaf's aggregate (as SGD gets it) against that
+   step's: the replicated leaves bit-equal, this rank's expert blocks
+   within ``ep_bound`` of its slice (the bf16 roundings of the gradients
+   and of the aggregate, and under digital each quantizer's step 2m/255,
+   from the largest |g| each collective got); after the OTA step the
+   keyed OTA epilogue, after the digital step the whole-tensor quantizer,
+   held bit-equal to its plain version on this rank's three expert
+   blocks with the step's keys (OTA at noise 1e-3, 15 launches a rank,
+   not counted in the step's); then "qwen3-moe-30b-a3b mesh
+   serve (EP)", all 48 layers at full size from seed 0, each rank
+   drawing the one-card weights and keeping its 64 experts a layer
+   (14.50 B expert and 1.54 B replicated parameters), 4 x 64 prompt
+   tokens (2 rows a rank) and 8 decode steps fed phase 9's greedy tokens:
+   no launch, logits within 1e-4 of the largest of phase 9's one-card
+   route on the same rows (bit-equality reported), a2a bytes and seconds
+   of the prefill and of each decode step. The lines say that seconds of
    ranks sharing one card are not multi-card speeds;
 14. the seconds of each numbered phase, the kernel table, nvidia-smi's
    line, and the result line.
@@ -2383,6 +2411,23 @@ def free_card():
     torch.cuda.empty_cache()
 
 
+def card_memory(largest=5):
+    """This process's hold on card 0 (GB): allocated, reserved, the card's
+    free memory, and over 1 GB allocated the shapes of the ``largest``
+    live CUDA tensors, to name what holds it."""
+    import torch
+    out = dict(allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9,
+               card_free_gb=torch.cuda.mem_get_info()[0] / 1e9)
+    if out["allocated_gb"] > 1.0:
+        live = [o for o in gc.get_objects()
+                if issubclass(type(o), torch.Tensor) and o.is_cuda]
+        live.sort(key=lambda t: -t.numel() * t.element_size())
+        out["largest"] = [[list(t.shape), str(t.dtype)]
+                          for t in live[:largest]]
+    return out
+
+
 def recurrent_layers(cfg, kind) -> int:
     return sum(cfg.kind(i) == kind for i in range(cfg.n_layers))
 
@@ -2787,8 +2832,55 @@ def moe_full():
     emit(**line, params=n_params, active_params=n_active,
          shape="prefill_32k, batch cut from 32 to 1",
          layers_on_card=cfg.n_layers)
+    t0 = time.perf_counter()
+    ep_ref = moe_ep_reference(model)
+    ep_ref_s = time.perf_counter() - t0
     del model
     free_card()
+    return ep_ref, ep_ref_s
+
+
+#: phase 13's expert-parallel serve: the whole batch, prompt and greedy
+#: decode steps (2 rows a rank)
+EP_SERVE = dict(batch=4, prompt_len=64, tokens=8, seed=1)
+
+
+def moe_ep_reference(model):
+    """The one-card reference of phase 13's expert-parallel serve, on
+    this phase's qwen3-moe-30b-a3b: the auto route over each rank's rows
+    of ``EP_SERVE``'s prompts as a batch of its own (so capacity, per
+    source in EP, is the same: C = 10 at 128 tokens), prefill and greedy
+    decode steps. Returns, per rank, the logits (1 + tokens, rows, V) and
+    the greedy tokens (rows, 1 + tokens), on the host."""
+    import torch
+    from repro_torch.launch.serve import SERVE_FLAGS
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import make_batch
+    B, S, T = EP_SERVE["batch"], EP_SERVE["prompt_len"], EP_SERVE["tokens"]
+    rows, cache_len = B // MESH_WORLD, S + T + 1
+    inputs = {k: v.cuda() for k, v in make_batch(
+        model.cfg, B, S,
+        torch.Generator().manual_seed(EP_SERVE["seed"])).items()}
+    pre = make_prefill_step(model, batch=rows, seq=S, cache_len=cache_len,
+                            flags=SERVE_FLAGS)
+    dec = make_decode_step(model, batch=rows, cache_len=cache_len,
+                           flags=SERVE_FLAGS)
+    out = []
+    for r in range(MESH_WORLD):
+        logits, caches, memory = pre({k: v[r * rows:(r + 1) * rows]
+                                      for k, v in inputs.items()})
+        kept, tok = [logits], torch.argmax(logits, -1)[:, None]
+        gen = [tok]
+        for i in range(T):
+            pos = torch.full((rows,), S + i, dtype=torch.int64,
+                             device="cuda")
+            logits, caches = dec(tok, pos, caches, memory)
+            tok = torch.argmax(logits, -1)[:, None]
+            kept.append(logits)
+            gen.append(tok)
+        out.append(dict(logits=torch.stack(kept).cpu(),
+                        tokens=torch.cat(gen, 1).cpu()))
+    return out
 
 
 # ------------------------------------------------ the audio and VLM front ends
@@ -3926,9 +4018,14 @@ def fingerprint(model):
     """Two int64 sums of every parameter's bits (plain and weighted by
     position), one pair a parameter, on the card: equal parameters give
     equal fingerprints, and any flipped bit changes them."""
+    return fingerprint_of(model.parameters())
+
+
+def fingerprint_of(params):
+    """:func:`fingerprint` of the tensors ``params``."""
     import torch
     out = []
-    for p in model.parameters():
+    for p in params:
         flat = p.detach().reshape(-1)
         ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
         v = flat.view(ints[flat.element_size()]).to(torch.int64)
@@ -4099,9 +4196,441 @@ def mesh_fig2(mesh, ota_p, dig_p):
     return out
 
 
-def mesh_rank(rank, ota_p, dig_p):
+#: phase 13's expert-parallel train steps: qwen3-moe-30b-a3b at full
+#: width cut to EP_LAYERS layers (all 48 do not fit one card with their
+#: gradients), its 15 reference leaves, 3 of them expert leaves cut over
+#: the ranks
+EP_LAYERS = 4
+EP_LEAVES = 15
+EP_EXPERT_LEAVES = ("groups/b0/moe/w_down", "groups/b0/moe/w_gate",
+                    "groups/b0/moe/w_up")
+EP_LEVELS = 255.0
+#: OTA's noise when phase 13 holds the keyed OTA epilogue against its
+#: plain version on the EP step's expert blocks (the step itself runs at
+#: noise 0: see ``mesh_ep_train``)
+EP_CHECK_NOISE = 1e-3
+#: the rank that runs the one-card digital step, alone on the card after
+#: both ranks ran the ideal and OTA ones, and sends the other rank its
+#: expert slices of it
+EP_DIGITAL_RANK = 1
+BF16_U = 2.0 ** -8            # bf16's unit roundoff
+#: the f32 sums' share of the bound (``ep_bound``), of the same terms
+EP_F32_SLACK = 2.0 ** -12
+#: phase 13's EP serve logits against the one-card route over the same
+#: rows, of the largest logit: the serve tests' bound (1e-4)
+EP_SERVE_REL = 1e-4
+
+
+class A2ABytes:
+    """While active: the all-to-all exchanges of ``core.dist`` (calls and
+    the bytes a rank sends, (W-1)/W of each buffer). No synchronise."""
+
+    def __enter__(self):
+        from repro_torch.core import dist
+        self._dist, self._real = dist, dist._exchange
+        self.calls = self.bytes = 0
+
+        def spy(t, group, size):
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size() * (size - 1) // size
+            return self._real(t, group, size)
+
+        dist._exchange = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._dist._exchange = self._real
+
+
+class StepTap:
+    """While active, around one train step with the reference leaves
+    ``leaves``: ``ghat``, each leaf's aggregate as SGD gets it; ``m``, a
+    list a client (one on a mesh) of each leaf's largest |g| as the
+    collective gets it; ``kept``, the inputs of the leaves ``keep``
+    names (index -> tensor); ``call``, the mesh collective's arguments."""
+
+    def __init__(self, leaves, keep=()):
+        self.leaves, self.keep = leaves, set(keep)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps as S
+        self._S, self._real = S, (S.sgd_update, S.wireless_psum,
+                                  S.mesh_psum_leaves)
+        sgd_update, wireless_psum, mesh_psum_leaves = self._real
+        self.m, self.kept, self.call, parts = [], {}, None, []
+        self._parts = parts
+
+        def tap(grads):
+            # holds no leaf past its turn: the step frees each leaf (and
+            # each client's leaves) before it makes the next
+            ms = []
+            self.m.append(ms)
+            for j, g in enumerate(grads):
+                ms.append(float(torch.maximum(g.amax(), -g.amin())))
+                if j in self.keep:
+                    self.kept[j] = g
+                yield g
+                del g
+
+        def sgd(cfg, params, grads):
+            parts.extend(grads)
+            return sgd_update(cfg, params, grads)
+
+        def each(clients):
+            for grads in clients:
+                for _ in tap(grads):
+                    pass
+                yield grads
+                del grads
+
+        def one_card(clients, *a, **kw):
+            return wireless_psum(each(clients), *a, **kw)
+
+        def mesh(grads, *a, **kw):
+            self.call = (a, kw)
+            return mesh_psum_leaves(tap(grads), *a, **kw)
+
+        S.sgd_update, S.wireless_psum, S.mesh_psum_leaves = (sgd, one_card,
+                                                             mesh)
+        self._torch = torch
+        return self
+
+    def __exit__(self, *exc):
+        S = self._S
+        S.sgd_update, S.wireless_psum, S.mesh_psum_leaves = self._real
+        if exc[0] is not None:
+            return
+        self.ghat, i = [], 0
+        for leaf in self.leaves:
+            k = len(leaf.params)
+            self.ghat.append(self._torch.stack(self._parts[i:i + k])
+                             if leaf.stacked else self._parts[i])
+            i += k
+        self._parts.clear()
+
+
+def ep_bound(agg, n, alpha, m_block, m_clients):
+    """The largest gap an expert block's aggregate may show from the
+    one-card step's slice, from the largest |g| the collectives got: this
+    rank's block's gradient ``m_block`` (the exchange's backward pass has
+    summed both clients' tokens into it, one bf16 rounding) and each
+    client's whole leaf's ``m_clients`` (one bf16 rounding each). With u
+    = 2^-8 and M = m_block + sum(m_clients): the gradients differ by at
+    most u M, the two casts of the aggregate to bf16 by u M, scaled by 1/n
+    (ideal) or 1/alpha (OTA); each digital quantizer moves an entry by
+    less than one of its steps 2m/L, its own m's (the block's once, each
+    client's once there), M 2/L in all; the f32 sums' share is 2^-12 M.
+    The replicated leaves take none of this: they are bit-equal."""
+    M = m_block + sum(m_clients)
+    scale = {"ideal": 1.0 / n, "ota": 1.0 / alpha, "digital": 1.0}[agg]
+    quant = 2.0 / EP_LEVELS if agg == "digital" else 0.0
+    return (scale * (2.0 * BF16_U + EP_F32_SLACK) + quant) * M
+
+
+def ep_kernels_vs_plain(agg, tap, ghat):
+    """The two kernels of the EP step's collective held against their
+    plain versions on this rank's expert blocks, at the shapes and with
+    the keys the step gave them (``tap``: its inputs and arguments). OTA:
+    the keyed epilogue and its plain version on the same inputs at noise
+    ``EP_CHECK_NOISE`` (the step's own is 0), the other leaves 1-entry
+    zeros so that the key split is the step's and no leaf is summed;
+    digital: the plain quantizer against the step's own aggregates
+    ``ghat``. Returns (the check's launches, bit-equal, largest gap)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.collectives import WirelessRound, mesh_psum_leaves
+    (n_leaves, rinfo, key, mesh), kw = tap.call
+    leaves = [tap.kept.get(j, torch.zeros(1, device="cuda"))
+              for j in range(n_leaves)]
+    run = dict(kw, skip_psum=[True] * n_leaves)
+    kernels.reset_launch_counts()
+    if agg == "ota":
+        rinfo = WirelessRound(weight=rinfo.weight, alpha=rinfo.alpha,
+                              noise_scale=torch.tensor(EP_CHECK_NOISE),
+                              levels=rinfo.levels)
+        kern = list(mesh_psum_leaves(iter(leaves), n_leaves, rinfo, key,
+                                     mesh, **dict(run, use_kernel=True)))
+    else:
+        kern = ghat
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    plain = list(mesh_psum_leaves(iter(leaves), n_leaves, rinfo, key, mesh,
+                                  **dict(run, use_kernel=False)))
+    pairs = [(kern[j], plain[j]) for j in tap.kept]
+    return (counts, all(torch.equal(a, b) for a, b in pairs),
+            max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+
+
+def mesh_ep_train(mesh):
+    """(b) qwen3-moe-30b-a3b at full width, ``EP_LAYERS`` layers, one
+    client a rank: one ideal, one OTA and one digital expert-parallel
+    mesh step of 8 x 128 tokens from the same weights (seed 0) at client
+    weights 1, each rank holding 64 of the 128 experts a layer. OTA runs
+    at noise 0: the expert blocks' noise is drawn over the block's shape,
+    so a one-card draw over the whole leaf is another draw; and equal
+    weights, as with unequal ones the EP step's aux term, the ranks' mean
+    as the reference's pmean, weighs each client's router gradient by the
+    mean weight (held against the reference on the CPU,
+    tests/test_torch_ep.py). Each rank's launches, loss, seconds, a2a
+    bytes, a fingerprint of its replicated leaves, and each leaf's
+    aggregate against the one-card 2-client auto step's: replicated
+    leaves bit-equal, this rank's expert blocks within ``ep_bound`` of
+    its slice. Both ranks run the one-card ideal and OTA steps, rank
+    ``EP_DIGITAL_RANK`` the digital one, whose loss, maxima and expert
+    slices it sends the other; the ranks take their one-card steps in
+    turn. After the OTA and digital steps the two
+    kernels are held against their plain versions on the expert blocks
+    (``ep_kernels_vs_plain``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import interop, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist, rngstream
+    from repro_torch.launch.mesh import client_index, n_clients
+    from repro_torch.launch.sharding import Placement
+    from repro_torch.launch.steps import fl_round_arrays, make_train_step
+    from repro_torch.launch.train import synthetic_token_batch
+    from repro_torch.models import make_model
+    from repro_torch.optim import SGDConfig
+    n, c = n_clients(mesh), client_index(mesh)
+    cfg = dataclasses.replace(get_config(QWEN_MOE), n_layers=EP_LAYERS)
+    batch = {k: v.cuda() for k, v in synthetic_token_batch(
+        np.random.default_rng(0), cfg.vocab_size, TRAIN_RUN["batch"],
+        TRAIN_RUN["seq"]).items()}
+    kw = dict(gammas=np.ones(2), alpha=1.5, noise_scale=0.0,
+              levels=EP_LEVELS)
+    run = dict(batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"],
+               sgd=SGDConfig(eta=1e-2))
+    key = rngstream.prng_key(0)
+    aggs = ("ideal", "ota", "digital")
+    refs, out = {}, {"one_card_s": 0.0, "one_card_peak_gb": {},
+                     "one_card_free_gb": {}}
+    t0 = time.perf_counter()
+    # one rank at a time, each returning its cache to the card after each
+    # step: a one-card 2-client step holds over 31 GB, and two at once
+    # (or one beside the other's cache) beside the other processes on a
+    # shared card ran it out of memory
+    free_card()
+    for r in range(n):
+        for agg in aggs if r == c else ():
+            if agg != "digital" or c == EP_DIGITAL_RANK:
+                torch.cuda.reset_peak_memory_stats()
+                out["one_card_free_gb"][agg] = (torch.cuda.mem_get_info()[0]
+                                                / 1e9)
+                t1 = time.perf_counter()
+                refs[agg] = ep_one_card(cfg, agg, c, n, (
+                    batch, fl_round_arrays(n, **kw), key), run)
+                out["one_card_s"] += time.perf_counter() - t1
+                out["one_card_peak_gb"][agg] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+                # the cache goes back to the card before the other rank's
+                # turn
+                free_card()
+        tdist.barrier()
+    out["one_card_wall_s"] = time.perf_counter() - t0
+    for agg in aggs:
+        model = make_model(cfg, seed=0, placement=Placement(mesh))
+        leaves = interop.reference_leaves(model)
+        expert = [j for j, leaf in enumerate(leaves)
+                  if leaf.key in EP_EXPERT_LEAVES]
+        step = make_train_step(model, mesh=mesh, aggregator=agg,
+                               flags={"moe_impl": "ep"}, **run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with A2ABytes() as a2a, StepTap(
+                leaves, expert if agg != "ideal" else ()) as tap:
+            t0 = time.perf_counter()
+            loss = float(step(batch, fl_round_arrays(mesh, **kw), key))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fps = dist.all_gather_cat(fingerprint_of(
+            [p for j, leaf in enumerate(leaves) if j not in expert
+             for p in leaf.params])[None])
+        row = dict(loss=loss, seconds=seconds, launches=counts,
+                   a2a_calls=a2a.calls, a2a_bytes=a2a.bytes,
+                   replicated_identical=bool((fps == fps[0]).all()),
+                   finite=all(bool(torch.isfinite(p).all())
+                              for p in model.parameters()),
+                   peak_memory_gb=peak,
+                   params=sum(p.numel() for p in model.parameters()),
+                   expert_params=sum(p.numel() for j in expert
+                                     for p in leaves[j].params))
+        if agg != "ideal":
+            t0 = time.perf_counter()
+            check_launches, equal, gap = ep_kernels_vs_plain(agg, tap,
+                                                             tap.ghat)
+            row.update(kernel_vs_plain_launches=check_launches,
+                       kernel_vs_plain_equal=equal,
+                       kernel_vs_plain_max_abs_err=gap,
+                       kernel_vs_plain_s=time.perf_counter() - t0)
+        if agg == "digital":
+            t0 = time.perf_counter()
+            refs[agg] = ep_send_digital(refs.get(agg), c, n, expert,
+                                        [tap.ghat[j] for j in expert])
+            row["send_s"] = time.perf_counter() - t0
+        one_loss, one_m, theirs = refs.pop(agg)
+        equal = [j for j in theirs if j not in expert
+                 and torch.equal(tap.ghat[j], theirs[j])]
+        ratio = {leaves[j].key: float(
+            (tap.ghat[j].float() - theirs[j].float()).abs().max())
+            / ep_bound(agg, n, kw["alpha"], tap.m[0][j],
+                       [ms[j] for ms in one_m]) for j in expert}
+        row.update(one_card_loss=one_loss,
+                   replicated_held=len(theirs) - len(expert),
+                   replicated_equal=len(equal), over_bound=ratio,
+                   worst_over_bound=max(ratio.values()),
+                   entries_differing=sum(
+                       int((tap.ghat[j] != theirs[j]).sum())
+                       for j in expert))
+        out[agg] = row
+        del model, leaves, step, tap, theirs
+        free_card()
+        tdist.barrier()
+    return out
+
+
+def ep_one_card(cfg, agg, c, n, args, run):
+    """The one-card 2-client auto step of phase 13's EP cell from the
+    same weights: (loss, each client's largest |g| a leaf, the aggregates
+    by leaf index: whole for a replicated leaf, rank ``c``'s slice for an
+    expert leaf; under digital, every rank's slices, the others' on the
+    host)."""
+    from repro_torch import interop
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import make_model
+    model = make_model(cfg, seed=0)
+    leaves = interop.reference_leaves(model)
+    step = make_train_step(model, n_clients=n, aggregator=agg, **run)
+    with StepTap(leaves) as tap:
+        loss = float(step(*args))
+    E, ghat, m = cfg.n_experts, {}, tap.m
+    for j, (leaf, g) in enumerate(zip(leaves, tap.ghat)):
+        if leaf.key not in EP_EXPERT_LEAVES:
+            ghat[j] = g
+            continue
+        for r in (range(n) if agg == "digital" else (c,)):
+            block = g[:, r * E // n:(r + 1) * E // n]
+            ghat[j, r] = (block.clone() if r == c
+                          else block.contiguous().cpu())
+        ghat[j] = ghat.pop((j, c))
+    del model, leaves, step, tap
+    return loss, m, ghat
+
+
+def ep_send_digital(ref, c, n, expert, blocks):
+    """The one-card digital step's loss, maxima and expert slices from
+    ``EP_DIGITAL_RANK`` to every other rank, which gets only its slices
+    of the leaves ``expert`` (shaped as its own ``blocks``, the step's
+    aggregates of them). Returns
+    this rank's (loss, maxima, aggregates) as ``ep_one_card``'s."""
+    import torch
+    import torch.distributed as tdist
+    if c == EP_DIGITAL_RANK:
+        loss, m, ghat = ref
+        head = torch.tensor([loss] + [x for ms in m for x in ms],
+                            dtype=torch.float64)
+        for r in range(n):
+            if r != c:
+                tdist.send(head, r)
+                for j in sorted(k for k in ghat if isinstance(k, tuple)
+                                and k[1] == r):
+                    tdist.send(ghat.pop(j), r)
+        return loss, m, ghat
+    head = torch.empty(1 + n * EP_LEAVES, dtype=torch.float64)
+    tdist.recv(head, EP_DIGITAL_RANK)
+    m = head[1:].view(n, EP_LEAVES).tolist()
+    ghat = {}
+    for j, b in zip(expert, blocks):
+        t = torch.empty(b.shape, dtype=b.dtype)
+        tdist.recv(t, EP_DIGITAL_RANK)
+        ghat[j] = t.to(b.device)
+    return float(head[0]), m, ghat
+
+
+def mesh_ep_serve(mesh, ref):
+    """(a) qwen3-moe-30b-a3b at full size (48 layers, bf16, seed 0 as
+    phase 9's model), experts split over the ranks: each rank draws the
+    one-card model's weights and keeps its 64 of 128 experts a layer
+    and every replicated leaf; ``EP_SERVE``'s prompts (each rank its 2
+    rows), prefill and decode steps fed the one-card reference's greedy
+    tokens. Its logits, seconds, a2a bytes, parameters held and launches
+    (none: no kernel is on this path)."""
+    import torch
+    from repro_torch import interop, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import client_index, n_clients
+    from repro_torch.launch.serve import SERVE_FLAGS
+    from repro_torch.launch.sharding import Placement
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import make_batch, make_model
+    n, c = n_clients(mesh), client_index(mesh)
+    cfg = get_config(QWEN_MOE)
+    B, S, T = EP_SERVE["batch"], EP_SERVE["prompt_len"], EP_SERVE["tokens"]
+    rows, cache_len = B // n, S + T + 1
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    card_free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0, placement=Placement(mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = interop.reference_leaves(model)
+    expert = sum(p.numel() for leaf in leaves
+                 if leaf.key in EP_EXPERT_LEAVES for p in leaf.params)
+    held = sum(p.numel() for p in model.parameters())
+    inputs = {k: v.cuda() for k, v in make_batch(
+        cfg, B, S, torch.Generator().manual_seed(EP_SERVE["seed"])).items()}
+    pre = make_prefill_step(model, batch=B, seq=S, cache_len=cache_len,
+                            flags=SERVE_FLAGS, mesh=mesh)
+    dec = make_decode_step(model, batch=B, cache_len=cache_len,
+                           flags=SERVE_FLAGS, mesh=mesh)
+    feed = ref[c]["tokens"].cuda()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    with A2ABytes() as a2a:
+        t0 = time.perf_counter()
+        logits, caches, memory = pre(inputs)
+        torch.cuda.synchronize()
+        prefill_s, prefill_bytes = time.perf_counter() - t0, a2a.bytes
+        kept, step_s, step_bytes = [logits], [], []
+        for i in range(T):
+            pos = torch.full((rows,), S + i, dtype=torch.int64,
+                             device="cuda")
+            b0, t0 = a2a.bytes, time.perf_counter()
+            logits, caches = dec(feed[:, i:i + 1], pos, caches, memory)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_bytes.append(a2a.bytes - b0)
+            kept.append(logits)
+        calls = a2a.calls
+    counts = kernels.launch_counts()
+    logits = torch.stack(kept)
+    out = dict(logits=logits.cpu(), init_s=init_s, prefill_s=prefill_s,
+               decode_step_s=step_s, a2a_calls=calls,
+               a2a_bytes_prefill=prefill_bytes,
+               a2a_bytes_decode_step=step_bytes, launches=counts,
+               params_held=held, expert_params_held=expert,
+               held_gb=sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+               experts_held=model.layers[0].moe.w_gate.shape[0],
+               greedy_tokens=torch.argmax(logits, -1).T.cpu(),
+               card_free_gb=card_free_gb,
+               finite=bool(torch.isfinite(logits).all()),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, leaves, caches, pre, dec, kept, logits
+    free_card()
+    return out
+
+
+def mesh_rank(rank, ota_p, dig_p, ep_ref):
     """Phase 13 in one rank: its backend, world and device, then the fed
-    collective, (a) and (b)."""
+    collective, (a) and (b), then the expert-parallel train steps and
+    serve (``ep_ref``: phase 9's one-card reference)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -4114,21 +4643,27 @@ def mesh_rank(rank, ota_p, dig_p):
     out["fed"] = mesh_fed(mesh)
     out["train"] = mesh_train(mesh)
     out["fig2"] = mesh_fig2(mesh, ota_p, dig_p)
+    t1 = time.perf_counter()
+    out["ep_train"] = mesh_ep_train(mesh)
+    t2 = time.perf_counter()
+    out["ep_serve"] = mesh_ep_serve(mesh, ep_ref)
+    out["ep_seconds"] = dict(train=t2 - t1, serve=time.perf_counter() - t2)
     out["rank_seconds"] = time.perf_counter() - t0
     return out
 
 
-def mesh_phase(ota_p, dig_p):
+def mesh_phase(ota_p, dig_p, ep_ref):
     """Phase 13: two ranks on the cards present (sharing card 0 under gloo
     on a one-card machine, NCCL with two cards), one FL client a rank.
     Returns the ranks' main-path launches, summed."""
     import torch
     from repro_torch.launch import distributed
     free_card()
+    emit(phase="mesh_parent_memory", **card_memory())
     t0 = time.perf_counter()
     ranks = distributed.spawn(mesh_rank, MESH_WORLD, device="cuda",
                               store_dir=ROOT / "build" / "mesh",
-                              args=(ota_p, dig_p))
+                              args=(ota_p, dig_p, ep_ref))
     seconds = time.perf_counter() - t0
     cards = torch.cuda.device_count()
     want_backend = distributed.backend_for("cuda", MESH_WORLD, cards)
@@ -4206,8 +4741,148 @@ def mesh_phase(ota_p, dig_p):
              one_rank_seconds=lead["one_rank_seconds"],
              launches_per_rank=[row["launches"] for row in rows],
              seconds_per_rank=[row["seconds"] for row in rows])
-    emit(phase="mesh_done", note=MESH_NOTE, seconds=seconds)
+    ep_phase(ranks, ep_ref, total)
+    emit(phase="mesh_done", note=MESH_NOTE, seconds=seconds,
+         ep_seconds_per_rank=[r["ep_seconds"] for r in ranks])
     return total
+
+
+EP_LOSS_REL = 1e-5            # the EP step's loss against the one-card's
+
+
+def ep_phase(ranks, ep_ref, total):
+    """Phase 13's expert-parallel lines: the 4-layer train steps, then
+    the full-size serve; adds the ranks' launches to ``total``."""
+    per_step = {"ideal": {}, "ota": {"ota_combine_keyed": EP_LEAVES},
+                "digital": {"dithered_quantize": EP_LEAVES}}
+    check_launches = {"ota": {"ota_combine_keyed": EP_LEAVES},
+                      "digital": {}}
+    for agg in ("ideal", "ota", "digital"):
+        rows = [r["ep_train"][agg] for r in ranks]
+        for r, row in zip(ranks, rows):
+            who = f"EP {agg} rank {r['rank']}"
+            check(row["launches"] == {k: per_step[agg].get(k, 0)
+                                      for k in row["launches"]},
+                  f"{who}: launches {row['launches']}")
+            check(row["replicated_identical"] and row["finite"],
+                  f"EP {agg}: the ranks' replicated leaves differ or a "
+                  f"parameter is not finite")
+            held = EP_LEAVES - len(EP_EXPERT_LEAVES)
+            check(row["replicated_held"] == (
+                      0 if agg == "digital" and r["rank"] != EP_DIGITAL_RANK
+                      else held)
+                  and row["replicated_equal"] == row["replicated_held"],
+                  f"{who}: {row['replicated_equal']} of "
+                  f"{row['replicated_held']} replicated aggregates "
+                  f"bit-equal to the one-card step's")
+            check(row["worst_over_bound"] <= 1.0,
+                  f"{who}: an expert block's aggregate is "
+                  f"{row['worst_over_bound']} times its bound from the "
+                  f"one-card step's ({row['over_bound']})")
+            check(abs(row["loss"] - row["one_card_loss"])
+                  <= EP_LOSS_REL * abs(row["one_card_loss"]),
+                  f"{who}: loss {row['loss']} against the one-card "
+                  f"{row['one_card_loss']}")
+            if agg in check_launches:
+                check(row["kernel_vs_plain_equal"]
+                      and row["kernel_vs_plain_launches"]
+                      == check_launches[agg],
+                      f"{who}: on the expert blocks the kernels and their "
+                      f"plain versions differ by "
+                      f"{row['kernel_vs_plain_max_abs_err']}, launches "
+                      f"{row['kernel_vs_plain_launches']}")
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(all(row["loss"] == rows[0]["loss"] for row in rows),
+              f"EP {agg}: ranks' losses {[row['loss'] for row in rows]}")
+        extra = {}
+        if agg in check_launches:
+            extra = dict(
+                kernel_vs_plain=dict(
+                    leaves=list(EP_EXPERT_LEAVES), bit_equal=True,
+                    noise_scale=EP_CHECK_NOISE if agg == "ota" else None,
+                    against="the kernels at noise_scale" if agg == "ota"
+                    else "the step's own aggregates"),
+                kernel_vs_plain_launches_per_rank=[
+                    r["kernel_vs_plain_launches"] for r in rows],
+                kernel_vs_plain_max_abs_err_per_rank=[
+                    r["kernel_vs_plain_max_abs_err"] for r in rows],
+                kernel_vs_plain_s_per_rank=[r["kernel_vs_plain_s"]
+                                            for r in rows])
+        if agg == "digital":
+            extra["send_s_per_rank"] = [r["send_s"] for r in rows]
+        emit(phase="main_path",
+             run=f"{QWEN_MOE} mesh train {agg} (EP, {EP_LAYERS} layers)",
+             note=MESH_NOTE, ranks=MESH_WORLD, clients=MESH_WORLD,
+             n_layers=EP_LAYERS, batch=TRAIN_RUN["batch"],
+             seq=TRAIN_RUN["seq"], noise_scale=0.0, levels=EP_LEVELS,
+             loss=rows[0]["loss"], one_card_loss=rows[0]["one_card_loss"],
+             limit=dict(replicated="bit-equal", expert="ep_bound",
+                        loss_rel=EP_LOSS_REL),
+             replicated_held_per_rank=[r["replicated_held"] for r in rows],
+             replicated_equal_per_rank=[r["replicated_equal"]
+                                        for r in rows],
+             worst_over_bound_per_rank=[r["worst_over_bound"] for r in rows],
+             over_bound_per_rank=[r["over_bound"] for r in rows],
+             entries_differing_per_rank=[r["entries_differing"]
+                                         for r in rows],
+             one_card_s_per_rank=[r["ep_train"]["one_card_s"]
+                                  for r in ranks],
+             one_card_wall_s_per_rank=[r["ep_train"]["one_card_wall_s"]
+                                       for r in ranks],
+             one_card_peak_gb_per_rank=[
+                 r["ep_train"]["one_card_peak_gb"].get(agg) for r in ranks],
+             one_card_free_gb_per_rank=[
+                 r["ep_train"]["one_card_free_gb"].get(agg) for r in ranks],
+             replicated_identical=True,
+             launches_per_rank=[r["launches"] for r in rows],
+             step_s_per_rank=[r["seconds"] for r in rows],
+             a2a_calls_per_rank=[r["a2a_calls"] for r in rows],
+             a2a_bytes_per_rank=[r["a2a_bytes"] for r in rows],
+             params_per_rank=[r["params"] for r in rows],
+             expert_params_per_rank=[r["expert_params"] for r in rows],
+             peak_memory_gb_per_rank=[r["peak_memory_gb"] for r in rows],
+             **extra)
+    rows = [r["ep_serve"] for r in ranks]
+    gaps, equal = [], []
+    for r, row in zip(ranks, rows):
+        want = ep_ref[r["rank"]]["logits"]
+        check(row["logits"].shape == want.shape and row["finite"],
+              f"EP serve rank {r['rank']}: logits {tuple(row['logits'].shape)}"
+              f" against {tuple(want.shape)}, or not finite")
+        gaps.append(logits_gap(row["logits"], want))
+        equal.append(same_bits(row["logits"], want))
+        check(gaps[-1] <= EP_SERVE_REL,
+              f"EP serve rank {r['rank']}: logits {gaps[-1]} of the largest "
+              f"from the one-card route's")
+        check(sum(row["launches"].values()) == 0,
+              f"EP serve rank {r['rank']}: launches {row['launches']}")
+        check(row["experts_held"] == 64,
+              f"EP serve rank {r['rank']}: {row['experts_held']} experts")
+    emit(phase="main_path", run=f"{QWEN_MOE} mesh serve (EP)",
+         note=MESH_NOTE, ranks=MESH_WORLD, n_layers=48, dtype="bfloat16",
+         batch=EP_SERVE["batch"], prompt_len=EP_SERVE["prompt_len"],
+         tokens=EP_SERVE["tokens"], experts_per_rank="64 of 128",
+         max_rel_gap_per_rank=gaps, limit=EP_SERVE_REL,
+         bit_equal_per_rank=equal,
+         greedy_tokens_equal_per_rank=[
+             bool((row["greedy_tokens"] == ep_ref[r["rank"]]["tokens"]).all())
+             for r, row in zip(ranks, rows)],
+         launches_per_rank=[row["launches"] for row in rows],
+         params_held_per_rank=[row["params_held"] for row in rows],
+         expert_params_held_per_rank=[row["expert_params_held"]
+                                      for row in rows],
+         held_gb_per_rank=[row["held_gb"] for row in rows],
+         init_s_per_rank=[row["init_s"] for row in rows],
+         prefill_s_per_rank=[row["prefill_s"] for row in rows],
+         decode_step_s_per_rank=[row["decode_step_s"] for row in rows],
+         a2a_calls_per_rank=[row["a2a_calls"] for row in rows],
+         a2a_bytes_prefill_per_rank=[row["a2a_bytes_prefill"]
+                                     for row in rows],
+         a2a_bytes_decode_step_per_rank=[row["a2a_bytes_decode_step"]
+                                         for row in rows],
+         peak_memory_gb_per_rank=[row["peak_memory_gb"] for row in rows],
+         card_free_gb_per_rank=[row["card_free_gb"] for row in rows])
 
 
 def main() -> int:
@@ -4581,7 +5256,9 @@ def main() -> int:
     free_card()
     moe_small_vs_cpu()
     chunked_vs_einsum()
-    moe_full()
+    ep_ref, ep_ref_s = moe_full()
+    emit(phase="moe_ep_reference", arch=QWEN_MOE, seconds=ep_ref_s,
+         **EP_SERVE, rows_per_rank=EP_SERVE["batch"] // MESH_WORLD)
     # then the audio and VLM front ends, which launch no kernel either:
     # whisper-tiny and internvl2-2b at full width and depth, whisper-tiny
     # in f32 and internvl2-2b scaled down on the card against the CPU
@@ -4621,7 +5298,7 @@ def main() -> int:
     # 13. the client and trial axes across ranks: two ranks on the card(s),
     # llama3.2-1b's FL step with one client a rank and Fig. 2's trials
     # over the ranks
-    for k, v in mesh_phase(*designed).items():
+    for k, v in mesh_phase(*designed, ep_ref).items():
         launches[k] = launches.get(k, 0) + v
 
     phase_start[14] = time.perf_counter()

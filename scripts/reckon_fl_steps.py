@@ -13,7 +13,12 @@ the kernel calls, and whether the peak fits the card
 rank's of the mesh step, one client a rank (``launch.mesh.abstract_mesh``,
 client 0), and the line adds the collective: the bytes the rank sends in
 its all-reduces (a ring: 2(W-1)/W of the f32 leaves) and their time on
-NVLink.
+NVLink. ``--moe-impl ep`` makes a MoE model's step expert-parallel: the
+rank holds its block of the expert leaves, and the line adds the
+all-to-alls of the MoE blocks ((W-1)/W of each exchanged buffer):
+
+    PYTHONPATH=src python3 scripts/reckon_fl_steps.py --ranks 4 \
+        --arch qwen3-moe-30b-a3b --moe-impl ep
 """
 import argparse
 import json
@@ -39,21 +44,26 @@ def main(argv=None) -> None:
     ap.add_argument("--ranks", type=int, default=None,
                     help="reckon one rank of the mesh step over this many "
                          "ranks, one client a rank")
+    ap.add_argument("--moe-impl", default="auto", choices=("auto", "ep"),
+                    help="ep: the expert-parallel MoE (needs --ranks)")
     args = ap.parse_args(argv)
+    if args.moe_impl == "ep" and args.ranks is None:
+        ap.error("--moe-impl ep runs over ranks: give --ranks")
     mesh = None if args.ranks is None else abstract_mesh(args.ranks)
     capacity, source = dryrun.card_capacity()
     for arch in args.archs:
         for agg in args.aggregators:
             t0 = time.time()
-            bundle, _ = dryrun.build_bundle(arch, FL_STEP, aggregator=agg,
-                                            mesh=mesh)
+            bundle, _ = dryrun.build_bundle(
+                arch, FL_STEP, aggregator=agg, mesh=mesh,
+                flags={"moe_impl": args.moe_impl})
             out, counter, live = analysis.reckon(bundle.fn,
                                                  bundle.arguments)
             print(json.dumps({
                 "arch": arch, "aggregator": agg, "batch": FL_STEP.global_batch,
                 "seq": FL_STEP.seq_len,
                 "n_clients": args.ranks or dryrun.N_CLIENTS,
-                "ranks": args.ranks or 1,
+                "ranks": args.ranks or 1, "moe_impl": args.moe_impl,
                 "collectives": analysis.collective_stats(counter),
                 "collective_s": analysis.time_terms(counter)["collective_s"],
                 "peak_bytes": live.peak,

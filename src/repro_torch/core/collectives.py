@@ -97,6 +97,8 @@ def wireless_psum(clients, round_info: WirelessRound, key, *,
                                            use_kernel=use_kernel) * weight[m]
             acc[j] = x if acc[j] is None else acc[j] + x
         n += 1
+        # this client's leaves go before the next client's are made
+        del leaves, g, x
     if mode == "ideal":
         acc = [a / n for a in acc]
     elif mode == "ota":

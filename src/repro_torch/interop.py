@@ -229,7 +229,7 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def model_state(params: dict) -> dict:
+def model_state(params: dict, model=None) -> dict:
     """The reference model's parameters (``Transformer.init``'s nested dict
     of NumPy arrays) -> the port's ``state_dict``. Stacked leaves
     ``groups/b<i>/...`` carry a leading group axis: group g, block i is the
@@ -237,13 +237,24 @@ def model_state(params: dict) -> dict:
     layer ``n_groups * len(pattern) + j``; the encoder's
     ``enc_groups/b0/...`` are stacked over its layers: layer g is the
     port's ``enc_layers.<g>``. Load with
-    ``model.load_state_dict(model_state(...))``."""
+    ``model.load_state_dict(model_state(...))``.
+
+    The mesh form: given a ``model`` built with a placement
+    (``launch.sharding.Placement``), each leaf is cut to this rank's
+    block (its spec from the leaf's logical axes, ``model.axes()``)
+    before it becomes a tensor, so only the block is ever copied."""
     state = {}
     groups = params.get("groups", {})
     pattern_len = len(groups)
     n_grouped = (pattern_len * len(next(_flatten(groups))[1])
                  if groups else 0)
+    place = None if model is None else model.placement
+    if place is not None:
+        axes = dict(zip((leaf.key for leaf in reference_leaves(model)),
+                        model.axes()))
     for name, leaf in _flatten(params):
+        if place is not None:
+            leaf = place.block(leaf, axes[name.replace(".", "/")])
         head, _, rest = name.partition(".")
         if head == "tail":
             j, _, leaf_name = rest.partition(".")
@@ -289,7 +300,8 @@ class Leaf(NamedTuple):
 def reference_leaves(model) -> list:
     """The inverse of :func:`model_state`: the port model's parameters as
     the reference's leaves, in the order ``jax.tree.leaves`` gives them
-    (keys sorted at every level). Layer i of a pattern of P kinds is block
+    (keys sorted at every level); on a rank of a mesh, its blocks of
+    them. Layer i of a pattern of P kinds is block
     ``b<i % P>`` of group ``i // P`` while whole groups last, then
     ``tail/<j>``; encoder layer i is group i of ``enc_groups/b0``. So an
     encoder-decoder's leaves run ``embed``, ``enc_groups/...``,

@@ -30,7 +30,8 @@ the card's published rates (:data:`H100`). The collective term is the
 bytes a rank sends in the collectives ``core/dist.py`` reckons
 on tensors without data (a step on an ``abstract_mesh``): a ring
 all-reduce of B bytes over W ranks sends 2(W-1)/W B a rank (and receives
-as much), over the card's NVLink rate in one direction; 0 on one card.
+as much), an all-to-all (the expert-parallel MoE's exchange) (W-1)/W B,
+over the card's NVLink rate in one direction; 0 on one card.
 """
 from __future__ import annotations
 
@@ -163,9 +164,11 @@ class OpCounter(TorchDispatchMode):
                 o.__exit__(None, None, None)
 
     def _on_collective(self, op, t, ranks):
-        # a ring all-reduce, the only collective reckoned
+        # a ring all-reduce sends 2(W-1)/W of the tensor; an all-to-all
+        # sends every block but this rank's own, (W-1)/W
         self.collective_calls[op] += 1
-        self.collective_bytes[op] += 2 * (ranks - 1) * _nbytes(t) // ranks
+        share = 2 if op == "all_reduce" else 1
+        self.collective_bytes[op] += share * (ranks - 1) * _nbytes(t) // ranks
 
     def _on_kernel(self, name, inputs, outputs):
         nbytes = tensor_bytes((inputs, outputs))

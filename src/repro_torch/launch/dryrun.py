@@ -39,6 +39,7 @@ from ..models.common import ModelConfig
 from ..models.transformer import Transformer
 from . import analysis
 from .serve import SERVE_FLAGS
+from .sharding import Placement
 from .shapes import SHAPE_IDS, SHAPES, applicable, config_for
 from .steps import (fl_round_arrays, make_decode_step, make_prefill_step,
                     make_train_step)
@@ -50,10 +51,10 @@ MESH = "1card"
 N_CLIENTS = 4
 MULTI_CARD = ("the dry run's multi-card meshes (--multi-pod, "
               "--both-meshes, --mesh-data) are not ported yet: ROADMAP "
-              "Queue 1 item 10 step 6, part B (after the logical axes and "
-              "sharding.py, the expert-parallel MoE, the 'model' axis and "
-              "the serve steps on a mesh); scripts/reckon_fl_steps.py "
-              "--ranks reckons one rank of the FL step's client mesh")
+              "Queue 1 item 10 step 6, part B (after the 'model' axis); "
+              "scripts/reckon_fl_steps.py --ranks reckons one rank of the "
+              "FL step's client mesh, with --moe-impl ep a MoE model's "
+              "expert-parallel step")
 
 
 @dataclasses.dataclass
@@ -82,7 +83,10 @@ def build_bundle(arch: str, shape_id, *, aggregator: str = "ota",
     (None, reason) where the shape does not apply to the arch.
     ``shape_id`` names one of ``SHAPES`` or is an ``InputShape``. A train
     cell with a ``mesh`` (``launch.mesh.abstract_mesh``) is one rank's
-    step with one client a rank, its collectives reckoned."""
+    step with one client a rank, its collectives reckoned; with
+    ``flags={"moe_impl": "ep"}`` there the rank holds its block of the
+    expert leaves (``launch.sharding.Placement``) and its MoE blocks
+    exchange tokens (reckoned all-to-alls)."""
     shape = SHAPES[shape_id] if isinstance(shape_id, str) else shape_id
     cfg0 = get_config(arch)
     ok, reason = applicable(cfg0, shape)
@@ -90,17 +94,21 @@ def build_bundle(arch: str, shape_id, *, aggregator: str = "ota",
         return None, reason
     cfg = config_for(cfg0, shape)
     batch = shape.global_batch if batch is None else batch
-    model = make_model(cfg, seed=None, device="meta")
-    params = list(model.parameters())
     if shape.kind == "train":
+        flags = dict(flags or {}) if mesh is not None else {}
+        ep = flags.get("moe_impl") == "ep"
+        model = make_model(cfg, seed=None, device="meta",
+                           placement=Placement(mesh) if ep else None)
         step = make_train_step(model, n_clients=N_CLIENTS, mesh=mesh,
                                aggregator=aggregator, batch=batch,
-                               seq=shape.seq_len)
+                               seq=shape.seq_len, flags=flags)
         inputs = _empty(batch_spec(cfg, batch, shape.seq_len))
         fl = fl_round_arrays(N_CLIENTS if mesh is None else mesh)
-        return Bundle("train", cfg, model, batch, {},
+        return Bundle("train", cfg, model, batch, flags,
                       lambda: step(inputs, fl, rngstream.prng_key(0)),
-                      (params, inputs)), ""
+                      (list(model.parameters()), inputs)), ""
+    model = make_model(cfg, seed=None, device="meta")
+    params = list(model.parameters())
     flags = {**SERVE_FLAGS,
              **({"attn_impl": "chunked"} if shape.kind == "prefill"
                 else {}), **(flags or {})}

@@ -9,9 +9,11 @@ group (one process a rank, ``launch/distributed.py``), built on
 client, client ``pod * |data| + data`` in the reference's order, and the
 clients' collective runs over :func:`client_group`.
 
-Only the client axes are ported: a "model" axis of more than one rank
-(tensor parallelism) raises, and so does the production mesh, which
-waits for the dry run's multi-card flags (``NOT_PORTED``). An
+The client axes are ported, and with them the expert-parallel MoE over
+"data" (``launch/sharding.py`` cuts the expert leaves over it): a
+"model" axis of more than one rank (tensor parallelism) raises, and so
+does the production mesh, which waits for the dry run's multi-card flags
+(``NOT_PORTED``). An
 :func:`abstract_mesh` has the same axes and one rank's coordinates but no
 process group, so a step can be reckoned on the meta device
 (``launch/analysis.py``) as one rank of a mesh that does not exist here.
@@ -26,11 +28,9 @@ import torch.distributed as dist
 from ..core.dist import (Mesh, client_axes, client_group,  # noqa: F401
                          client_index, n_clients)
 
-NOT_PORTED = ("ROADMAP Queue 1 item 10 step 6, part B (the logical axes "
-              "on the port's parameters and sharding.py; the "
-              "expert-parallel MoE; the 'model' axis; the serve steps on "
-              "a mesh; the dry run's multi-card flags and production "
-              "mesh)")
+NOT_PORTED = ("ROADMAP Queue 1 item 10 step 6, part B (the 'model' axis, "
+              "with the sequence-sharded caches; then the dry run's "
+              "multi-card flags and production mesh)")
 
 
 def _check_model_axis(model_axis: int) -> None:

@@ -15,6 +15,14 @@ logs and writes the checkpoints.
         --arch tinyllama-1.1b --no-reduced --steps 3        # on the card
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --device cpu --arch tinyllama-1.1b --steps 3        # 2 ranks
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --arch qwen3-moe-30b-a3b --moe-impl ep --steps 3
+
+``--moe-impl ep`` (under ``torchrun``) trains a MoE model expert-parallel:
+each rank builds only its block of the expert leaves
+(``launch.sharding.Placement``) and the MoE blocks exchange tokens over
+the ranks; its checkpoints would hold one rank's experts, so it takes no
+``--ckpt-dir``.
 
 ``--arch`` takes the reduced (``scaled_down()``, f32) variant unless
 ``--no-reduced``; without ``--arch`` a small llama-style model of
@@ -46,6 +54,7 @@ from ..models.common import ModelConfig
 from ..optim.sgd import SGDConfig
 from . import distributed
 from .mesh import client_index, make_host_mesh, n_clients as mesh_clients
+from .sharding import Placement
 from .steps import fl_round_arrays, make_train_step
 
 
@@ -97,6 +106,7 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
           mesh=None, eta: float = 1.0, momentum: float = 0.0,
           g_max: float = 10.0, seed: int = 0,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+          flags: Optional[dict] = None,
           log: Callable[[str], None] = print) -> TrainLog:
     """Train ``model`` for ``steps`` FL rounds on Markov token batches from
     ``np.random.default_rng(seed)``, as the reference launcher does: OTA
@@ -105,7 +115,9 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
     scale 1e-2 sqrt(N0)/alpha, 255 quantizer levels, key t at step t.
     The batches are tokens only, as the reference's, so an audio or VLM
     model raises ValueError. With a ``mesh`` the clients are its ranks
-    (``n_clients`` is ignored), and only client 0 logs and checkpoints."""
+    (``n_clients`` is ignored), and only client 0 logs and checkpoints;
+    ``flags`` go to the train step (``{"moe_impl": "ep"}``: expert
+    parallel, no checkpoints)."""
     cfg = model.cfg
     if cfg.arch_type in ("audio", "vlm"):
         raise ValueError(
@@ -114,6 +126,10 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
             f"{'frames' if cfg.arch_type == 'audio' else 'patches'}; "
             f"train it through launch.steps.make_train_step with them in "
             f"the batch")
+    if ckpt_dir and model.placement is not None:
+        raise ValueError("a model holding its rank's blocks would "
+                         "checkpoint one rank's experts: no --ckpt-dir "
+                         "with --moe-impl ep")
     dev = model.device
     lead = mesh is None or client_index(mesh) == 0
     if mesh is not None:
@@ -127,7 +143,7 @@ def train(model, *, aggregator: str = "ota", steps: int = 100,
     step = make_train_step(model, n_clients=n_clients, mesh=mesh,
                            aggregator=aggregator,
                            sgd=SGDConfig(eta=eta, momentum=momentum),
-                           batch=batch, seq=seq)
+                           batch=batch, seq=seq, flags=flags)
     fading = FadingProcess(dep, seed=7)
     taus = ota_params.thresholds()
     rng = np.random.default_rng(seed)
@@ -192,6 +208,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--moe-impl", default="auto", choices=("auto", "ep"),
+                    help="ep: expert-parallel MoE over the ranks (under "
+                         "torchrun)")
     args = ap.parse_args(argv)
 
     mesh, say = None, print
@@ -202,15 +221,21 @@ def main(argv=None) -> None:
                              f"the clients are the {rank.world} ranks")
         mesh = make_host_mesh(device_type=rank.device.type)
         say = print if rank.rank == 0 else _quiet
+    ep = args.moe_impl == "ep"
+    if ep and mesh is None:
+        raise SystemExit("--moe-impl ep runs over ranks: start it under "
+                         "torchrun")
     cfg = build_cfg(args)
-    model = make_model(cfg, seed=args.seed, device=args.device)
+    model = make_model(cfg, seed=args.seed, device=args.device,
+                       placement=Placement(mesh) if ep else None)
     say(f"model: {cfg.name}  params={param_count(model):,}  "
         f"on {model.device}")
     train(model, aggregator=args.aggregator, steps=args.steps,
           batch=args.batch, seq=args.seq,
           n_clients=args.n_clients or 4, mesh=mesh, eta=args.eta,
           momentum=args.momentum, g_max=args.g_max, seed=args.seed,
-          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, log=say)
+          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+          flags={"moe_impl": "ep"} if ep else None, log=say)
     say("done.")
     distributed.leave()
 

@@ -27,15 +27,18 @@ MOE_AUX_COEF = 0.01
 
 
 def make_model(cfg: ModelConfig, *, seed: Optional[int] = 0,
-               device=None) -> Transformer:
+               device=None, placement=None) -> Transformer:
     """The model with parameters drawn on ``device`` from a generator
     seeded with ``seed``; ``seed=None`` leaves them uninitialised, for
-    weights loaded after."""
+    weights loaded after. With a ``placement``
+    (``launch.sharding.Placement(mesh)``) it is one rank's model: each
+    parameter this rank's block of the one-card model's."""
     dev = resolve_device(device)
     gen = (None if seed is None
            else torch.Generator(device=dev).manual_seed(seed))
     with torch.no_grad():
-        return Transformer(cfg, device=dev, generator=gen)
+        return Transformer(cfg, device=dev, generator=gen,
+                           placement=placement)
 
 
 def effective_seq(cfg: ModelConfig, seq: int) -> int:

@@ -7,7 +7,10 @@ reference leaf ``groups/b0/mamba/in_proj`` (layer axis first) is the
 port's ``layers.<i>.mamba.in_proj`` (``repro_torch.interop``). They are
 drawn from one explicit ``torch.Generator`` on the target device, with the
 reference's shapes and scales; the draws themselves differ from JAX's, so
-tests carry the reference's weights across instead.
+tests carry the reference's weights across instead. Each records the
+logical axes the reference's ``ParamBuilder.param`` gives it; with a
+placement (``launch.sharding.Placement``) a rank holds only its block of
+each, drawn whole with the one-card generator sequence and then cut.
 """
 from __future__ import annotations
 
@@ -123,15 +126,35 @@ class ParamInit:
     1 gives -inf, as in the reference, and a = 1 on that channel).
     ``generator=None`` leaves every parameter uninitialised
     (``torch.empty``), for weights loaded after.
+
+    ``placement`` (``launch.sharding.Placement``, None on one card) cuts
+    each parameter by its logical ``axes``: the whole leaf is drawn, so
+    the generator runs through the one-card sequence, and only this
+    rank's block is kept (without a generator only the block is
+    allocated).
     """
 
-    def __init__(self, dtype, device, generator: Optional[torch.Generator]):
+    def __init__(self, dtype, device, generator: Optional[torch.Generator],
+                 placement=None):
         self.dtype = dtype
         self.device = device
         self.generator = generator
+        self.placement = placement
 
     def __call__(self, shape: tuple, init: str = "normal",
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None,
+                 axes: Optional[tuple] = None) -> torch.Tensor:
+        if self.placement is None or axes is None:
+            return self._draw(shape, init, scale)
+        if self.generator is None:
+            return self._draw(self.placement.local_shape(shape, axes), init,
+                              scale)
+        whole = self._draw(shape, init, scale)
+        block = self.placement.block(whole, axes)
+        return whole if block.shape == whole.shape else block.clone()
+
+    def _draw(self, shape: tuple, init: str,
+              scale: Optional[float]) -> torch.Tensor:
         kw = dict(dtype=self.dtype, device=self.device)
         if self.generator is None:
             return torch.empty(shape, **kw)
@@ -158,10 +181,19 @@ class ParamInit:
 class ParamModule(nn.Module):
     """A module whose leaves are parameters named as the reference's,
     readable as ``p["name"]`` like the reference's dicts. They train;
-    serving runs under ``torch.no_grad``."""
+    serving runs under ``torch.no_grad``. ``leaf_meta[name]`` keeps each
+    one's logical axes and its whole shape (which a rank holding a block
+    does not see)."""
 
-    def param(self, draw: ParamInit, name: str, shape: tuple, **kw) -> None:
-        self.register_parameter(name, nn.Parameter(draw(shape, **kw)))
+    def param(self, draw: ParamInit, name: str, shape: tuple, axes: tuple,
+              **kw) -> None:
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {shape} and axes {axes}")
+        if "leaf_meta" not in self.__dict__:
+            self.leaf_meta = {}
+        self.leaf_meta[name] = (tuple(axes), tuple(shape))
+        self.register_parameter(name, nn.Parameter(draw(shape, axes=axes,
+                                                        **kw)))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)

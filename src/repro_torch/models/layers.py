@@ -19,9 +19,13 @@ options:
   * ``cache_len`` — set by ``api.prefill``: the length of the caches a
     prefill writes;
   * ``attn_impl`` — ``"einsum"`` (the default) or ``"chunked"``;
-  * ``moe_impl`` — ``"auto"`` (the default); ``"ep"`` without a mesh
-    falls through to it, as the reference's does; with a mesh or
-    ``_in_manual`` it raises (ROADMAP Queue 1 item 10 step 6);
+  * ``moe_impl`` — ``"auto"`` (the default) or ``"ep"``, expert
+    parallelism over the "data" axis of ``flags["mesh"]``: under
+    ``_in_manual`` (the mesh train step) always, under a mesh alone (the
+    serve steps) when the experts split over the axis, as the rules cut
+    them; otherwise ``"ep"`` falls through to ``"auto"``, as the
+    reference's does; ``moe_a2a_quant`` sends its exchanges as int8
+    codes;
   * ``mamba_kernel`` — the Mamba scan goes to ``kernels.ops.selective_scan``
     (the hand-written CUDA kernel on the card); with ``use_kernel=False``
     there it runs the kernel's plain version, which gives the same bits;
@@ -45,16 +49,15 @@ from typing import Optional
 
 import torch
 
+from ..core import dist
 from ..kernels import ops as kops
 from .common import (ModelConfig, ParamInit, ParamModule, gelu, rms_norm,
                      rope, silu, softplus)
 
-EP_NOT_PORTED = ("the expert-parallel MoE route (moe_impl='ep' under a mesh "
-                 "or a manual shard) is not ported yet (ROADMAP Queue 1 "
-                 "item 10 step 6, part B: after the logical axes on the "
-                 "parameters and sharding.py, the expert-parallel MoE with "
-                 "_a2a_quantized and skip_psum); without a mesh 'ep' runs "
-                 "the auto route")
+EP_NOT_PORTED = ("the expert-parallel MoE over a mesh whose 'model' axis "
+                 "has more than one rank (tensor parallelism inside the "
+                 "experts) is not ported yet: ROADMAP Queue 1 item 10 "
+                 "step 6, part B (3), the 'model' axis")
 NEG_INF = -1e30
 
 
@@ -62,13 +65,13 @@ NEG_INF = -1e30
 
 def init_attention(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p.param(init, "wq", (d, H, hd))
-    p.param(init, "wk", (d, KV, hd))
-    p.param(init, "wv", (d, KV, hd))
-    p.param(init, "wo", (H, hd, d))
+    p.param(init, "wq", (d, H, hd), ("embed", "heads", "head_dim"))
+    p.param(init, "wk", (d, KV, hd), ("embed", "kv_heads", "head_dim"))
+    p.param(init, "wv", (d, KV, hd), ("embed", "kv_heads", "head_dim"))
+    p.param(init, "wo", (H, hd, d), ("heads", "head_dim", "embed"))
     if cfg.qk_norm:
-        p.param(init, "q_norm", (hd,), init="ones")
-        p.param(init, "k_norm", (hd,), init="ones")
+        p.param(init, "q_norm", (hd,), ("head_dim",), init="ones")
+        p.param(init, "k_norm", (hd,), ("head_dim",), init="ones")
 
 
 def _qk_normalize(cfg: ModelConfig, p, q, k):
@@ -254,9 +257,9 @@ def init_attention_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def init_mlp(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
     d, f = cfg.d_model, cfg.d_ff
-    p.param(init, "w_gate", (d, f))
-    p.param(init, "w_up", (d, f))
-    p.param(init, "w_down", (f, d))
+    p.param(init, "w_gate", (d, f), ("embed", "mlp"))
+    p.param(init, "w_up", (d, f), ("embed", "mlp"))
+    p.param(init, "w_down", (f, d), ("mlp", "embed"))
 
 
 def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -272,10 +275,10 @@ def init_moe(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
     (E, d, f), (E, d, f), (E, f, d) at ParamInit's default 1/sqrt(E), as
     the reference's ``ParamBuilder`` scales a leaf by its first axis."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    p.param(init, "router", (d, E), scale=0.02)
-    p.param(init, "w_gate", (E, d, f))
-    p.param(init, "w_up", (E, d, f))
-    p.param(init, "w_down", (E, f, d))
+    p.param(init, "router", (d, E), ("embed", "experts_router"), scale=0.02)
+    p.param(init, "w_gate", (E, d, f), ("experts", "embed", "expert_mlp"))
+    p.param(init, "w_up", (E, d, f), ("experts", "embed", "expert_mlp"))
+    p.param(init, "w_down", (E, f, d), ("experts", "expert_mlp", "embed"))
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -367,22 +370,123 @@ def _expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
-              flags: Optional[dict] = None):
-    """Top-k MoE with sort-based dispatch and a fixed capacity per expert
-    (``repro.models.layers.moe_apply``, its ``"auto"`` route). Every
-    expert runs over its whole (C, d) buffer, filled or not. Returns (y
-    (B, S, d), aux)."""
-    flags = flags or {}
+def _ep_axis(cfg: ModelConfig, p, flags: dict):
+    """(group, n) of the "data" axis when the expert-parallel route runs,
+    None for the auto route. The route is the one the sharding rules
+    chose: EP under ``_in_manual``, or under a mesh whose "data" axis
+    divides E; then the block must hold E / n experts. A block holding a
+    share of the experts never takes the auto route."""
+    E, held = cfg.n_experts, p["w_gate"].shape[0]
+    mesh = flags.get("mesh")
     if flags.get("moe_impl", "auto") == "ep" and (
-            flags.get("_in_manual") or flags.get("mesh") is not None):
-        raise NotImplementedError(EP_NOT_PORTED)
+            flags.get("_in_manual") or mesh is not None):
+        if mesh is None or "data" not in mesh.axis_names:
+            raise ValueError("the expert-parallel route runs over the "
+                             "'data' axis of flags['mesh']")
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(EP_NOT_PORTED)
+        n = mesh.shape["data"]
+        if flags.get("_in_manual") or E % n == 0:
+            if held * n != E:
+                raise ValueError(
+                    f"the expert-parallel route over {n} ranks needs {E}/{n}"
+                    f" experts a rank, this block holds {held}: build the "
+                    f"model with launch.sharding.Placement(mesh)")
+            return dist.axis_group(mesh, "data"), n
+    if held != E:
+        raise ValueError(f"this block holds {held} of {E} experts, so it "
+                         f"runs only on the expert-parallel route "
+                         f"(moe_impl='ep' with its mesh)")
+    return None
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
+              flags: Optional[dict] = None, *, aux: bool = True):
+    """Top-k MoE with sort-based dispatch and a fixed capacity per expert
+    (``repro.models.layers.moe_apply``). On the ``"auto"`` route every
+    expert runs over its whole (C, d) buffer, filled or not; on the
+    expert-parallel one (``_ep_axis``) :func:`_moe_apply_ep`. Returns (y
+    (B, S, d), aux). ``aux=False`` says the caller drops aux (a prefill
+    or decode step): the expert-parallel route then skips its mean over
+    the ranks, a collective a layer, and returns None for it."""
+    flags = flags or {}
+    ep = _ep_axis(cfg, p, flags)
+    if ep is not None:
+        return _moe_apply_ep(cfg, p, x, *ep,
+                             quant=bool(flags.get("moe_a2a_quant", False)),
+                             aux=aux)
     B, S, d = x.shape
     T = B * S
     C = _capacity(cfg, T)
     buf, combine, aux = _moe_dispatch(cfg, p["router"], x.reshape(T, d), C)
     y = _moe_combine(combine, _expert_ffn(p, buf), T, x.dtype)
     return y.view(B, S, d), aux
+
+
+def _a2a_codes(u: torch.Tensor):
+    """The int8 exchange's payload of ``u`` (n, ...): per-source absmax
+    scales (n, 1, ...) (the max in u's dtype, then f32) and codes
+    round(u / max(scale, 1e-30) * 127) clipped to [-127, 127], in f32
+    (round half to even), as the reference's ``_a2a_quantized``."""
+    scale = u.abs().amax(dim=tuple(range(1, u.dim())), keepdim=True).float()
+    q = torch.round(u.float() / torch.clamp_min(scale, 1e-30) * 127.0)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+class _A2AQuantized(torch.autograd.Function):
+    """The int8 all-to-all (``repro.models.layers._a2a_quantized``): the
+    codes and the f32 scales are exchanged, then dequantised in f32 and
+    cast back to u's dtype. The reference writes codes * scale / 127;
+    XLA turns the division by the constant into a product with its f32
+    reciprocal, and so does the port, for the same bits. The backward
+    pass is the plain exchange of the gradient (straight through)."""
+
+    @staticmethod
+    def forward(ctx, u, group, size):
+        ctx.group, ctx.size = group, size
+        q, scale = _a2a_codes(u)
+        q = dist.all_to_all(q, group, size=size)
+        scale = dist.all_to_all(scale, group, size=size)
+        return (q.float() * scale * (1.0 / 127.0)).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dist.all_to_all(g, ctx.group, size=ctx.size), None, None
+
+
+def _a2a_quantized(u: torch.Tensor, group, size: int) -> torch.Tensor:
+    return _A2AQuantized.apply(u, group, size)
+
+
+def _moe_apply_ep(cfg: ModelConfig, p, x: torch.Tensor, group, n: int,
+                  quant: bool = False, aux: bool = True):
+    """The expert-parallel block (``repro.models.layers._moe_apply_ep``),
+    p holding this rank's E/n experts (rank i holds experts [i E/n,
+    (i+1) E/n)): route this rank's tokens with the replicated router at
+    capacity ``_capacity(cfg, T_local)`` per (source, expert); exchange
+    the (n, E/n, C, d) buffer with :func:`core.dist.all_to_all` (int8
+    codes with ``quant``); run the local experts over (E/n, n C, d), the
+    sources in rank order; exchange back and combine. aux is the mean of
+    the ranks' load-balance terms (the reference's ``pmean``), None with
+    ``aux=False``."""
+    B, S, d = x.shape
+    T = B * S
+    E_loc = cfg.n_experts // n
+    C = _capacity(cfg, T)
+    buf, combine, local_aux = _moe_dispatch(cfg, p["router"],
+                                            x.reshape(T, d), C)
+
+    def exchange(t):
+        return (_a2a_quantized(t, group, n) if quant
+                else dist.all_to_all(t, group, size=n))
+
+    buf = exchange(buf.reshape(n, E_loc, C, d))
+    buf = buf.transpose(0, 1).reshape(E_loc, n * C, d)
+    out = _expert_ffn(p, buf)
+    out = exchange(out.view(E_loc, n, C, d).transpose(0, 1).contiguous())
+    y = _moe_combine(combine, out.view(cfg.n_experts, C, d), T, x.dtype)
+    return y.view(B, S, d), (dist.all_mean(local_aux, group, n) if aux
+                             else None)
 
 
 # ================================================= chunked linear scans
@@ -453,15 +557,15 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def init_mamba(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
     d, di, n, dr, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
                        cfg.ssm_conv)
-    p.param(init, "in_proj", (d, 2 * di))
-    p.param(init, "conv_w", (K, di), scale=0.5)
-    p.param(init, "conv_b", (di,), init="zeros")
-    p.param(init, "x_proj", (di, dr + 2 * n))
-    p.param(init, "dt_proj", (dr, di))
-    p.param(init, "dt_bias", (di,), init="zeros")
-    p.param(init, "a_log", (di, n), init="ssm_a")
-    p.param(init, "d_skip", (di,), init="ones")
-    p.param(init, "out_proj", (di, d))
+    p.param(init, "in_proj", (d, 2 * di), ("embed", "ssm_inner"))
+    p.param(init, "conv_w", (K, di), ("conv", "ssm_inner"), scale=0.5)
+    p.param(init, "conv_b", (di,), ("ssm_inner",), init="zeros")
+    p.param(init, "x_proj", (di, dr + 2 * n), ("ssm_inner", "dt_rank"))
+    p.param(init, "dt_proj", (dr, di), ("dt_rank", "ssm_inner"))
+    p.param(init, "dt_bias", (di,), ("ssm_inner",), init="zeros")
+    p.param(init, "a_log", (di, n), ("ssm_inner", "ssm_state"), init="ssm_a")
+    p.param(init, "d_skip", (di,), ("ssm_inner",), init="ones")
+    p.param(init, "out_proj", (di, d), ("ssm_inner", "embed"))
 
 
 def _selective_scan_fused(dt, Bmat, xb, A, Cmat, h0, chunk: int):
@@ -548,16 +652,16 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
 
 def init_rglru(init: ParamInit, p: ParamModule, cfg: ModelConfig) -> None:
     d, w, K = cfg.d_model, cfg.lru_dim, cfg.conv1d_width
-    p.param(init, "w_branch", (d, w))
-    p.param(init, "w_gate_branch", (d, w))
-    p.param(init, "conv_w", (K, w), scale=0.5)
-    p.param(init, "conv_b", (w,), init="zeros")
-    p.param(init, "w_a", (w, w), scale=0.02)
-    p.param(init, "b_a", (w,), init="zeros")
-    p.param(init, "w_i", (w, w), scale=0.02)
-    p.param(init, "b_i", (w,), init="zeros")
-    p.param(init, "lambda_p", (w,), init="lru_a")
-    p.param(init, "out_proj", (w, d))
+    p.param(init, "w_branch", (d, w), ("embed", "lru"))
+    p.param(init, "w_gate_branch", (d, w), ("embed", "lru"))
+    p.param(init, "conv_w", (K, w), ("conv", "lru"), scale=0.5)
+    p.param(init, "conv_b", (w,), ("lru",), init="zeros")
+    p.param(init, "w_a", (w, w), ("lru", "lru"), scale=0.02)
+    p.param(init, "b_a", (w,), ("lru",), init="zeros")
+    p.param(init, "w_i", (w, w), ("lru", "lru"), scale=0.02)
+    p.param(init, "b_i", (w,), ("lru",), init="zeros")
+    p.param(init, "lambda_p", (w,), ("lru",), init="lru_a")
+    p.param(init, "out_proj", (w, d), ("lru", "embed"))
 
 
 def rglru_apply(cfg: ModelConfig, p, x: torch.Tensor,

@@ -50,7 +50,7 @@ class Layer(ParamModule):
                  cross: bool = False, moe: bool = False):
         super().__init__()
         self.kind = kind
-        self.param(init, "ln1", (cfg.d_model,), init="ones")
+        self.param(init, "ln1", (cfg.d_model,), ("embed",), init="ones")
         if kind in ("global", "local", "encoder"):
             self.attn = ParamModule()
             L.init_attention(init, self.attn, cfg)
@@ -63,11 +63,12 @@ class Layer(ParamModule):
         else:
             raise ValueError(kind)
         if cross and kind != "encoder":
-            self.param(init, "ln_cross", (cfg.d_model,), init="ones")
+            self.param(init, "ln_cross", (cfg.d_model,), ("embed",),
+                       init="ones")
             self.cross = ParamModule()
             L.init_attention(init, self.cross, cfg)
         if kind != "mamba" and cfg.d_ff > 0:
-            self.param(init, "ln2", (cfg.d_model,), init="ones")
+            self.param(init, "ln2", (cfg.d_model,), ("embed",), init="ones")
             if moe:
                 self.moe = ParamModule()
                 L.init_moe(init, self.moe, cfg)
@@ -78,7 +79,8 @@ class Layer(ParamModule):
     def forward(self, cfg: ModelConfig, x, positions, *, cache=None,
                 mode="train", flags=None, memory=None):
         """``_layer_apply``: (x, new_cache, aux); aux is the MoE block's
-        load-balance term, None for a layer without one. A layer with
+        load-balance term, None for a layer without one (and for an
+        expert-parallel block outside training, which drops it). A layer with
         cross-attention reads the encoder ``memory`` in every mode, and
         raises without one (the reference's would attend over x instead,
         ROADMAP Queue 3)."""
@@ -117,34 +119,41 @@ class Layer(ParamModule):
         if hasattr(self, "ln2"):
             h = rms_norm(x, self.ln2, cfg.norm_eps)
             if hasattr(self, "moe"):
-                y, aux = L.moe_apply(cfg, self.moe, h, flags=flags)
+                y, aux = L.moe_apply(cfg, self.moe, h, flags=flags,
+                                     aux=mode == "train")
             else:
                 y = L.mlp_apply(cfg, self.mlp, h)
             x = x + y
         return x, new_cache, aux
 
 
-class Transformer(nn.Module):
+class Transformer(ParamModule):
     """An LM for one ModelConfig: decoder-only, or with an encoder stack
     when ``cfg.encoder_layers > 0``.
 
     ``generator`` draws the parameters on ``device`` (embed, final_norm,
     lm_head, then layer by layer, then the encoder's layers and
     enc_norm); ``generator=None`` leaves them uninitialised, for weights
-    loaded after (``interop.model_state``).
+    loaded after (``interop.model_state``). ``placement``
+    (``launch.sharding.Placement``) makes one rank's model of a mesh:
+    each parameter is this rank's block of the one-card model's, the same
+    bits (``ParamInit``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 placement=None):
         super().__init__()
         self.cfg = cfg
+        self.placement = placement
         cross = cfg.encoder_layers > 0
-        init = ParamInit(cfg.dtype, device, generator)
-        self.embed = nn.Parameter(
-            init((cfg.vocab_size, cfg.d_model), scale=0.02))
-        self.final_norm = nn.Parameter(init((cfg.d_model,), init="ones"))
-        self.lm_head = nn.Parameter(
-            init((cfg.d_model, cfg.vocab_size), scale=0.02))
+        init = ParamInit(cfg.dtype, device, generator, placement)
+        self.param(init, "embed", (cfg.vocab_size, cfg.d_model),
+                   ("vocab", "embed"), scale=0.02)
+        self.param(init, "final_norm", (cfg.d_model,), ("embed",),
+                   init="ones")
+        self.param(init, "lm_head", (cfg.d_model, cfg.vocab_size),
+                   ("embed", "vocab"), scale=0.02)
         self.layers = nn.ModuleList(
             Layer(cfg, cfg.kind(i), init, cross=cross,
                   moe=cfg.n_experts > 0) for i in range(cfg.n_layers))
@@ -152,11 +161,39 @@ class Transformer(nn.Module):
             self.enc_layers = nn.ModuleList(
                 Layer(cfg, "encoder", init)
                 for _ in range(cfg.encoder_layers))
-            self.enc_norm = nn.Parameter(init((cfg.d_model,), init="ones"))
+            self.param(init, "enc_norm", (cfg.d_model,), ("embed",),
+                       init="ones")
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _leaf_meta(self) -> list:
+        """(axes, whole shape) of each reference leaf, in
+        ``interop.reference_leaves`` order; a stacked leaf's with "layers"
+        (and the stack's length) in front."""
+        from .. import interop
+        meta = {id(getattr(m, name)): am
+                for m in self.modules() if isinstance(m, ParamModule)
+                for name, am in m.__dict__.get("leaf_meta", {}).items()}
+        out = []
+        for leaf in interop.reference_leaves(self):
+            axes, shape = meta[id(leaf.params[0])]
+            if leaf.stacked:
+                axes, shape = ("layers",) + axes, (len(leaf.params),) + shape
+            out.append((axes, shape))
+        return out
+
+    def axes(self) -> list:
+        """The reference's logical axes of each leaf
+        (``repro.models.transformer.Transformer.axes``, flattened in
+        ``jax.tree.leaves`` order)."""
+        return [axes for axes, _ in self._leaf_meta()]
+
+    def full_shapes(self) -> list:
+        """Each reference leaf's whole shape, also where this rank holds
+        a block of it."""
+        return [shape for _, shape in self._leaf_meta()]
 
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
         """One cache per layer (``_init_layer_cache``): an attention ring

@@ -137,6 +137,38 @@ def psum_job(inp, multi_pod=False, data_axis=None):
     return out
 
 
+#: the two-rank sum's cases: dtype, and whether the tensor summed is a
+#: transposed (not contiguous) view
+SUM_CASES = {"float32": ("float32", False), "bfloat16": ("bfloat16", False),
+             "float64": ("float64", False),
+             "float32_transposed": ("float32", True)}
+
+
+def sum_job():
+    """Each case of ``SUM_CASES`` summed over two ranks three ways:
+    ``core.dist.all_reduce_sum`` (which takes the send/receive sum on two
+    gloo ranks), ``core.dist._add_peer`` itself, and gloo's own
+    ``all_reduce`` on a contiguous copy."""
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    rank = tdist.get_rank()
+    out = {}
+    for i, (name, (dt, transposed)) in enumerate(SUM_CASES.items()):
+        rng = np.random.default_rng([rank, i])
+        x = rng.standard_normal((37, 53)) * 10.0 ** rng.integers(
+            -30, 30, (37, 53))
+        x[0, :4] = [0.0, -0.0, -0.0, 0.0] if rank else [-0.0, -0.0, 0.0, 0.0]
+        x = torch.from_numpy(x).to(getattr(torch, dt))
+        if transposed:
+            x = x.t()
+        gloo = x.contiguous().clone()
+        tdist.all_reduce(gloo)
+        out[name] = {"all_reduce_sum": dist.all_reduce_sum(x.clone()),
+                     "add_peer": dist._add_peer(x.clone(), None),
+                     "gloo": gloo}
+    return out
+
+
 def train_job(model_fn, fl_inputs, aggs, steps, batch, seq, eta):
     """Per aggregator, ``steps`` mesh train steps from the weights
     ``model_fn()`` makes (a function of this module): the losses and the
@@ -210,3 +242,127 @@ def die_job(rank):
     if rank == 1:
         raise RuntimeError("rank 1 stops here")
     torch.distributed.barrier()
+
+
+# ------------------------------------------------------- expert parallel
+
+EP_ARCH = "qwen3-moe-30b-a3b"
+#: the reference's EP runs, tagged as ``_torch_ep_ref.py`` saves them:
+#: (tag, aggregator, moe_a2a_quant)
+EP_TRAIN = tuple((agg + ("_quant" if quant else ""), agg, quant)
+                 for quant in (False, True)
+                 for agg in ("ideal", "ota", "digital"))
+
+
+def unflatten(flat, prefix):
+    """{"<prefix>a/b/c": v} -> {"a": {"b": {"c": v}}} for the keys under
+    ``prefix``."""
+    tree = {}
+    for key, v in flat.items():
+        if key.startswith(prefix):
+            *head, last = key[len(prefix):].split("/")
+            node = tree
+            for h in head:
+                node = node.setdefault(h, {})
+            node[last] = v
+    return tree
+
+
+def ep_model(ref_path, mesh=None):
+    """The port's scaled-down qwen3-moe (f32) with the reference's weights
+    (``p/...`` of ``ref_path``): on a ``mesh``, this rank's blocks only."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import Placement
+    from repro_torch.models import make_model
+    ref = np.load(ref_path)
+    params = unflatten({k: ref[k] for k in ref.files if k.startswith("p/")},
+                       "p/")
+    model = make_model(get_config(EP_ARCH).scaled_down(), seed=None,
+                       device="cpu",
+                       placement=None if mesh is None else Placement(mesh))
+    model.load_state_dict(interop.model_state(params, model))
+    return model
+
+
+def _leaves(model, of=lambda p: p):
+    from repro_torch import interop
+    return {leaf.key: leaf.value(of).detach().clone()
+            for leaf in interop.reference_leaves(model)}
+
+
+def ep_job(inp_path, ref_path):
+    """This rank's side of ``_torch_ep_ref.py`` on a 2-rank mesh: the EP
+    block, the int8 exchange's codes and output on the fed buffer, prefill
+    and fed decode steps, the summed gradients and the train steps."""
+    from repro_torch.core import dist, rngstream
+    from repro_torch.launch.mesh import client_index, make_host_mesh
+    from repro_torch.launch.steps import (fl_round_arrays, make_decode_step,
+                                          make_prefill_step, make_train_step,
+                                          sharded_leaves)
+    from repro_torch.models import api, layers as L
+    from repro_torch.optim import SGDConfig
+    mesh = make_host_mesh(device_type="cpu")
+    n, c = mesh.shape["data"], client_index(mesh)
+    group = dist.axis_group(mesh, "data")
+    inp = dict(np.load(inp_path))
+    model = ep_model(ref_path, mesh)
+    cfg = model.cfg
+    ep = {"moe_impl": "ep"}
+    out = {"client": c, "skip": sharded_leaves(model, mesh, ep)}
+
+    def rows(a):
+        b = a.shape[0] // n
+        return torch.from_numpy(np.ascontiguousarray(a[c * b:(c + 1) * b]))
+
+    with torch.no_grad():
+        for tag, quant in (("ep", False), ("ep_quant", True)):
+            out[f"moe/{tag}"] = L.moe_apply(
+                cfg, model.layers[0].moe, rows(inp["x"]),
+                flags={**ep, "mesh": mesh, "moe_a2a_quant": quant})
+        u = rows(inp["u"])
+        out["a2a/codes"] = L._a2a_codes(u)
+        out["a2a/out"] = L._a2a_quantized(u, group, n)
+
+        B, S = inp["prompt"].shape
+        steps = inp["feed"].shape[1]
+        cache_len = S + steps + 1
+        pre = make_prefill_step(model, batch=B, seq=S, cache_len=cache_len,
+                                flags=ep, mesh=mesh)
+        logits, caches, memory = pre(
+            {"tokens": torch.from_numpy(inp["prompt"]).long()})
+        dec = make_decode_step(model, batch=B, cache_len=cache_len,
+                               flags=ep, mesh=mesh)
+        kept, feed = [], rows(inp["feed"]).long()
+        for i in range(steps):
+            lg, caches = dec(feed[:, i:i + 1],
+                             torch.full((B // n,), S + i, dtype=torch.int64),
+                             caches, memory)
+            kept.append(lg)
+        out["serve"] = (logits, torch.stack(kept))
+
+    loss, _ = api.loss_fn(model, {"tokens": rows(inp["tokens"][0]).long()},
+                          {**ep, "mesh": mesh, "_in_manual": True})
+    (loss * float(inp["gammas"][c])).backward()
+    grads = _leaves(model, lambda p: p.grad)
+    for skip, key in zip(out["skip"], grads):
+        if not skip:
+            dist.all_reduce_sum(grads[key], group)
+    out["grad"] = grads
+
+    Bt, St = inp["tokens"].shape[1:]
+    for tag, agg, quant in EP_TRAIN:
+        model = ep_model(ref_path, mesh)
+        step = make_train_step(model, mesh=mesh, aggregator=agg,
+                               sgd=SGDConfig(eta=float(inp["eta"])),
+                               batch=Bt, seq=St,
+                               flags={**ep, "moe_a2a_quant": quant})
+        losses = []
+        for t in range(inp["tokens"].shape[0]):
+            fl = fl_round_arrays(mesh, gammas=inp["gammas"], alpha=2.0,
+                                 noise_scale=1e-3, levels=15.0)
+            losses.append(float(step(
+                {"tokens": torch.from_numpy(inp["tokens"][t]).long()}, fl,
+                rngstream.prng_key(t))))
+        out[f"train/{tag}"] = (losses, _leaves(model))
+    return out

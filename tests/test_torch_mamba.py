@@ -25,6 +25,7 @@ import torch
 from _torch_reference import one_thread, ref  # noqa: F401  (fixtures)
 from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, REGISTRY, get_config
+from repro_torch.core.dist import Mesh
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import (decode_step, layers as L, make_batch,
@@ -125,8 +126,10 @@ def test_other_kinds_raise_not_implemented(arch):
 
 def _unported_call(block):
     """(a call of what the port does not run, the message it raises):
-    the MoE block's expert-parallel route inside a manual shard
-    (multi-card, item 10 step 6); the RG-LRU's kernel route under
+    the MoE block's expert-parallel route over a "model" axis of more
+    than one rank (multi-card, item 10 step 6, part B; the route itself
+    runs since it was ported, ``test_torch_ep.py``); the RG-LRU's kernel
+    route under
     autograd (the kernel has no backward). Cross-attention and the
     bidirectional encoder kind (the front ends, item 10 step 4) raised
     until they were ported: their calls now run, and the message is
@@ -142,8 +145,10 @@ def _unported_call(block):
         model = make_model(get_config("qwen3-moe-30b-a3b").scaled_down(),
                            device="cpu")
         x = torch.zeros(1, 4, model.cfg.d_model)
+        mesh = Mesh(("data", "model"), {"data": 2, "model": 2},
+                    {"data": 0, "model": 0})
         return (lambda: L.moe_apply(model.cfg, model.layers[0].moe, x,
-                                    flags={"moe_impl": "ep",
+                                    flags={"moe_impl": "ep", "mesh": mesh,
                                            "_in_manual": True}),
                 "ROADMAP Queue 1 item 10 step 6")
     model = make_model(get_config("tinyllama-1.1b").scaled_down(),

@@ -65,7 +65,8 @@ def ranks2(tmp_path_factory):
             ("train", "train_job", (("seeded_model", CFG, 3), _fl_inputs(2),
                                     AGGS, STEPS, BATCH, SEQ, ETA)),
             ("shard", "shard_job", ()),
-            ("launcher", "launcher_job", (CFG, 5, 2, BATCH, SEQ))]
+            ("launcher", "launcher_job", (CFG, 5, 2, BATCH, SEQ)),
+            ("sum", "sum_job", ())]
     return _spawn(2, jobs, tmp_path_factory)
 
 
@@ -131,6 +132,25 @@ def test_psum_two_ranks_bit_equal(ranks2):
             assert a.dtype == np.float32
             np.testing.assert_array_equal(_bits(a), _bits(b))
     _own_payloads_bit_equal(inp, ranks2, "psum")
+
+
+@pytest.mark.parametrize("case", sorted(R.SUM_CASES))
+def test_two_rank_sum_is_gloos_all_reduce(ranks2, case):
+    """On two gloo ranks ``all_reduce_sum`` swaps the tensors and adds
+    the other rank's (``_add_peer``): the same bits as gloo's own
+    all-reduce on both ranks, signed zeros included, also for a view that
+    is not contiguous (summed in place, its strides kept)."""
+    for r in ranks2:
+        got = r["sum"][case]
+        assert got["all_reduce_sum"].is_contiguous() != R.SUM_CASES[case][1]
+        for way in ("all_reduce_sum", "add_peer"):
+            a, b = got[way].contiguous(), got["gloo"]
+            assert a.dtype == b.dtype == getattr(torch, R.SUM_CASES[case][0])
+            ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            assert torch.equal(a.view(ints[a.element_size()]),
+                               b.view(ints[b.element_size()])), (case, way)
+    assert torch.equal(ranks2[0]["sum"][case]["gloo"],
+                       ranks2[1]["sum"][case]["gloo"])
 
 
 @pytest.mark.parametrize("name", ["psum", "pod"])

@@ -267,13 +267,26 @@ def test_ep_without_a_mesh_runs_the_auto_route(pairs):
     assert torch.equal(auto[0], ep[0]) and torch.equal(auto[1], ep[1])
 
 
-@pytest.mark.parametrize("flags", [{"_in_manual": True},
-                                   {"mesh": object()}])
-def test_ep_under_a_mesh_raises(pairs, flags):
+def _mesh(data, model=1):
+    from repro_torch.core.dist import Mesh
+    return Mesh(("data", "model"), {"data": data, "model": model},
+                {"data": 0, "model": 0})
+
+
+@pytest.mark.parametrize("flags, error, match", [
+    ({"_in_manual": True}, ValueError, "'data' axis of flags"),
+    ({"mesh": _mesh(2)}, ValueError, "build the model with launch.sharding"),
+    ({"mesh": _mesh(2, 2)}, NotImplementedError,
+     "ROADMAP Queue 1 item 10 step 6, part B \\(3\\)")])
+def test_ep_under_a_mesh_raises(pairs, flags, error, match):
+    """The expert-parallel route's refusals (it runs in
+    ``test_torch_ep.py``): under ``_in_manual`` without a mesh; under a
+    mesh whose data axis splits the experts while the block holds all of
+    them (the rules would give this rank a half); over a "model" axis of
+    more than one rank."""
     _, model = pairs[ARCHS[0]]
     x = torch.zeros(1, 4, 128)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10 step 6"):
+    with pytest.raises(error, match=match):
         L.moe_apply(model.cfg, model.layers[0].moe, x,
                     flags={"moe_impl": "ep", **flags})
 
